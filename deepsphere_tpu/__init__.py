@@ -1,11 +1,11 @@
-"""deepsphere_tpu — a TPU-native JAX framework for spherical CNNs on
-HEALPix-sampled maps.
+"""deepsphere_tpu — a JAX framework for spherical CNNs on HEALPix-sampled
+maps.
 
 A from-scratch re-design of the capabilities of ``deepsphere-cosmo-tf2``
 (graph convolutions via polynomials of the sphere-graph Laplacian, NEST
 hierarchy pooling, graph attention, Gaussian smoothing, model assembly and
-visualization) built on jax / flax / optax with XLA/Pallas compute kernels
-and ``jax.sharding`` scale-out.
+visualization) built on jax / optax with a small in-repo module system
+(:mod:`.nn.core`), XLA-compiled compute and ``jax.sharding`` scale-out.
 
 Public surface parity with the reference package
 (``/root/reference/src/deepsphere/__init__.py``): ``HealpyGCNN``, ``logger``,

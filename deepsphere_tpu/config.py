@@ -1,10 +1,10 @@
 """Global numerical configuration.
 
 ``matmul_precision`` controls the XLA dot precision used by every matmul /
-einsum in the compute path.  The default is ``"highest"`` (full fp32 on MXU
-via multi-pass accumulation) so the framework meets the <1e-5 per-layer
-parity target vs the float32 TF2 reference; flip to ``"default"`` (bf16
-passes on the MXU) for maximum throughput when training with bfloat16.
+einsum in the compute path.  The default is ``"highest"`` (full float32)
+so the framework meets the <1e-5 per-layer parity target vs the float32
+TF2 reference; on GPUs ``"default"`` lets float32 matmuls run in TF32 on
+the tensor cores (about three decimal digits) for throughput.
 """
 
 from __future__ import annotations
@@ -18,174 +18,6 @@ _PRECISIONS = {
 }
 
 matmul_precision: str = "highest"
-
-# Fused Pallas stencil kernel:
-#   "auto" — compiled on TPU backends, disabled elsewhere (XLA fallback)
-#   "on"   — compiled on TPU, interpreter elsewhere (tests use this to
-#            exercise the kernel code path on CPU)
-#   "off"  — always the XLA stencil path
-use_pallas: str = "auto"
-
-
-def set_use_pallas(mode: str):
-    global use_pallas
-    if mode not in ("auto", "on", "off"):
-        raise ValueError(f"use_pallas must be auto/on/off, got {mode}")
-    use_pallas = mode
-
-
-def pallas_mode():
-    """Resolve the pallas flag -> None (disabled) | "compile" | "interpret"."""
-    if use_pallas == "off":
-        return None
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        return "compile"
-    return "interpret" if use_pallas == "on" else None
-
-
-# Fused-kernel channel-contraction strategy:
-#   "auto" — scalar-AXPY for small unroll counts (B*Fin*Fout*K), per-batch
-#            MXU matmuls beyond the threshold (the AXPY unroll count is
-#            also Mosaic compile time, which explodes at quick_start-scale
-#            channel counts)
-#   "axpy" / "dot" — force one strategy (benchmarking)
-contract_mode: str = "auto"
-contract_dot_min_unroll: int = 1024
-
-
-def set_contract_mode(mode: str, dot_min_unroll: int | None = None):
-    global contract_mode, contract_dot_min_unroll
-    if mode not in ("auto", "axpy", "dot"):
-        raise ValueError(f"contract_mode must be auto/axpy/dot, got {mode}")
-    contract_mode = mode
-    if dot_min_unroll is not None:
-        contract_dot_min_unroll = int(dot_min_unroll)
-
-
-def resolve_contract(unroll: int) -> str:
-    if contract_mode != "auto":
-        return contract_mode
-    return "axpy" if unroll <= contract_dot_min_unroll else "dot"
-
-
-# Minimum nside for the FUSED kernel when the contraction resolves to
-# "dot" (large channel counts) in COMPILED mode.  Below this the per-step
-# XLA stencil path is fast at these sizes anyway, while every fused conv
-# adds ~5 Mosaic kernels (fwd + dx + dW + 2 strip builders) to a
-# training executable — and dot-mode MODEL train programs crossed an XLA
-# compile-complexity cliff that hard-faults the TPU worker (round-5
-# bisection, tools/probe_qs_train.py): a single-conv dot-mode VJP
-# compiles and runs (515 s), but the quick_start train step faults even
-# with ONE fused conv left in the program, while the all-XLA variant is
-# round-3-proven on chip.  128 keeps quick_start-class models (nside <=
-# 64 at large channel counts) entirely on the proven path; large-nside
-# dot-mode convs — where the fused kernel's payoff is real — still run
-# fused, one conv per program being the validated envelope.  Interpret
-# mode is unaffected (full test coverage).
-dot_fused_min_nside: int = 128
-
-
-def set_dot_fused_min_nside(n: int):
-    global dot_fused_min_nside
-    dot_fused_min_nside = int(n)
-
-
-# Fused-kernel band compute dtype.  "float32" (default) runs the whole
-# recursion in f32 — bit-compatible with the XLA stencil path and the
-# <1e-5 TF2-parity target.  "bfloat16" (stage A) casts the assembled band
-# window and weight planes to bf16 INSIDE the kernel: the Chebyshev /
-# monomial recursion runs at half the VMEM traffic and the channel
-# contraction feeds the MXU with native bf16 inputs (f32 accumulation via
-# preferred_element_type).  HBM I/O and halo DMA stay f32, so there is no
-# new alignment constraint.  NOTE (measured on-chip, v5e): the recursion
-# is VPU-ALU-bound and this VPU does not run packed-2x bf16 elementwise
-# ops, so the band mode is ~40% SLOWER than f32 at the headline config —
-# its value is VMEM headroom (bigger bands / wider models), not speed.  "bfloat16_io"
-# (stage B) additionally keeps the conv's HBM arrays (activations, halo
-# strips, weight planes, outputs) in bf16: HBM traffic and DMA bytes
-# halve on top of stage A.  DMA row slices must then be 16-aligned
-# (bf16 sublane tile is (16, 128)), so the window margin grows to
-# R = roundup(h, 16) and the face size must satisfy n % 16 == 0 — convs
-# that don't fit run stage A behavior on an f32 copy.  Relative error vs
-# f32 is ~1e-3..1e-2 for either stage — opt in for throughput
-# (inference / mixed-precision training), like Keras mixed_bfloat16.
-conv_dtype: str = "float32"
-
-
-def set_conv_dtype(name: str):
-    global conv_dtype
-    if name not in ("float32", "bfloat16", "bfloat16_io"):
-        raise ValueError(
-            f"conv_dtype must be float32/bfloat16/bfloat16_io, got {name}"
-        )
-    conv_dtype = name
-
-
-def band_dtype():
-    """The jnp dtype the fused kernel's recursion runs in."""
-    import jax.numpy as jnp
-
-    return jnp.float32 if conv_dtype == "float32" else jnp.bfloat16
-
-
-def conv_io_dtype():
-    """The dtype the fused kernel's HBM arrays (activations, strips,
-    weight planes, output) use when the conv structurally supports it."""
-    import jax.numpy as jnp
-
-    return jnp.bfloat16 if conv_dtype == "bfloat16_io" else jnp.float32
-
-
-# Fused dx+dW backward: compute the kernel cotangent inside the dx band
-# pass (adjoint trick — L~ symmetric, so dW = <x, T_k(L~) dy> over the
-# recursion terms the dx pass already holds in VMEM).  Saves the separate
-# dW kernel's duplicate recursion + band/strip traffic (~18 ms/step at
-# nside=1024).  Off = the two-kernel reference path (kept for debugging
-# and for A/B numerics checks).
-fused_dw: bool = True
-
-
-def set_fused_dw(on: bool):
-    global fused_dw
-    fused_dw = bool(on)
-
-
-# Halo-strip assembly for the fused conv: "auto" runs the single-launch
-# Pallas builder (ops/pallas_strips.py) whenever the conv itself compiles
-# to TPU and the builder covers the config (full sphere, f32 I/O) — the
-# XLA formulation is op-launch-bound (~5.3 ms/conv at nside=1024, a third
-# of the conv step).  "xla" forces the reference assembly; "pallas"
-# forces the builder even in interpret mode (tests).
-strips_mode: str = "auto"
-
-
-def set_strips_mode(mode: str):
-    assert mode in ("auto", "xla", "pallas"), mode
-    global strips_mode
-    strips_mode = mode
-
-
-# Kernel-cost bisection hooks (dev only).  The fused kernel consults
-# ``kernel_bisect()`` to optionally skip its recursion / contraction /
-# lane-store stages when measuring where time goes (tools/kbench.py).  The
-# DS_KB env var is honoured ONLY when this explicit opt-in flag is set —
-# a stray environment variable must never silently corrupt conv results.
-debug_kernel_bisect: bool = False
-
-
-def set_debug_kernel_bisect(on: bool):
-    global debug_kernel_bisect
-    debug_kernel_bisect = bool(on)
-
-
-def kernel_bisect() -> str:
-    """The active bisection mode ("" = full kernel, the production path)."""
-    if not debug_kernel_bisect:
-        return ""
-    import os
-
-    return os.environ.get("DS_KB", "")
 
 
 def set_matmul_precision(name: str):

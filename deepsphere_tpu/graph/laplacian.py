@@ -1,10 +1,10 @@
 """Sphere graph construction: kNN graph -> normalized Laplacian -> ELLPACK.
 
-TPU-native replacement for the reference's external graph backend, the pygsp
+Replacement for the reference's external graph backend, the pygsp
 fork's ``SphereHealpix(subdivisions, indexes, nest, k, lap_type)`` consumed at
 ``/root/reference/src/deepsphere/healpy_networks.py:110-118``.  All of this is
-host-side precompute (numpy/scipy/sklearn); the result is a set of static,
-TPU-friendly padded arrays:
+host-side precompute (numpy/scipy); the result is a set of static, padded
+device arrays:
 
 * ``ell_idx`` (M, W) int32 and ``ell_val`` (M, W) float32 — the rescaled
   Laplacian in padded ELLPACK layout.  The kNN graph has bounded degree
@@ -95,8 +95,8 @@ def _grid_adjacency(nside, indices, kernel_width=None, width_ratio=None):
 
     Partial skies are supported: edges to out-of-mask pixels are dropped
     (mask-boundary rows keep < 8 neighbors), which keeps the graph
-    grid-structured INSIDE the mask — the property the stencil / fused
-    Pallas conv path needs (the kNN construction instead rewires boundary
+    grid-structured INSIDE the mask — the property the stencil conv path
+    needs (the kNN construction instead rewires boundary
     pixels to 2nd-ring neighbors, breaking the stencil form)."""
     n = len(indices)
     npix = hp.nside2npix(nside)
@@ -129,7 +129,7 @@ def _grid_adjacency(nside, indices, kernel_width=None, width_ratio=None):
 #: template radius per supported neighbor count for the ring ("grid")
 #: construction: k nearest pixels are selected WITHIN the Chebyshev-radius-r
 #: face-coordinate ring template, so the operator stays a (2r+1)^2 stencil
-#: — the structured form the fused TPU conv path requires.  The template
+#: — the structured form the stencil conv path requires.  The template
 #: sizes (24, 48, 80) bound the reference's k in {20, 40, 60}
 #: (healpy_networks.py:39-42).
 GRID_RADIUS = {8: 1, 20: 2, 40: 3, 60: 4}
@@ -139,8 +139,8 @@ GRID_RADIUS = {8: 1, 20: 2, 40: 3, 60: 4}
 #: local, so almost every row's edges fit a Chebyshev window one ring wider
 #: than the matching grid template; the O(1) rows that don't (polar-corner
 #: anisotropy) are handled by the stencil extraction's corrupt-row exact
-#: recompute.  This is what lets ``method="knn"`` ride the fused Pallas
-#: conv path instead of the serialized-gather ELLPACK path.
+#: recompute.  This is what lets ``method="knn"`` ride the stencil conv
+#: path instead of the gather (ELLPACK) path.
 KNN_CAPTURE_RADIUS = {8: 2, 20: 3, 40: 4, 60: 5}
 
 
@@ -149,7 +149,7 @@ def _grid_ring_adjacency(nside, indices, k, kernel_width=None,
     """Gaussian-weighted adjacency with neighbors = the k nearest pixels
     inside the radius-r face-grid ring template (r = GRID_RADIUS[k]).
 
-    TPU-native analogue of the reference's k in {20, 40, 60} kNN graphs:
+    Structured analogue of the reference's k in {20, 40, 60} kNN graphs:
     per row, the k nearest template pixels are kept (ties at the template
     corners are the farthest and drop out naturally) and the edge set is
     symmetrized by INTERSECTION, so every edge is representable in both
@@ -217,7 +217,7 @@ def _grid_ring_adjacency(nside, indices, k, kernel_width=None,
 
 def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
     """Gaussian-weighted symmetric kNN adjacency from 3D unit vectors."""
-    from sklearn.neighbors import NearestNeighbors
+    from scipy.spatial import cKDTree
 
     n = coords.shape[0]
     k_eff = min(k, n - 1)
@@ -226,8 +226,7 @@ def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
             f"WARNING: graph has only {n} vertices; kNN degree reduced "
             f"from k={k} to {k_eff} (check nside/indices if unexpected)"
         )
-    nn = NearestNeighbors(n_neighbors=k_eff + 1).fit(coords)
-    dist, idx = nn.kneighbors(coords)
+    dist, idx = cKDTree(coords).query(coords, k=k_eff + 1)
     dist = dist[:, 1:]  # drop self
     idx = idx[:, 1:]
 
@@ -337,7 +336,7 @@ class SphereGraph:
     """Static graph structure for one (nside, indices, k) resolution level.
 
     Hashable by content key so it can be carried as a static attribute of
-    Flax modules without retracing issues.
+    modules without retracing issues.
     """
 
     nside: int
@@ -427,25 +426,12 @@ class SphereGraph:
         return GRID_RADIUS.get(int(self.k))
 
     def deep_stencil(self, scale, n_terms):
-        """The stencil sized for a FUSED (n_terms - 1)-application conv:
-        halo depth >= radius * (n_terms - 1).  None when unavailable.
-
-        Depths beyond one sublane tile are rounded UP to the tile (8 rows):
-        on real TPU hardware the fused kernel's window DMA geometry is
-        Mosaic-verified only for h <= 8 or h % 8 == 0 — unaligned deeper
-        halos (radius-1 K=10 -> h=9, radius-3 K=5 -> h=12) hard-fault the
-        chip (PERFORMANCE.md round-3 finding).  The padded rows carry
-        valid-but-unused halo margin, so the recursion is exact either way,
-        and the padded configs land in the verified class (h=16/24/...).
-        """
+        """The stencil whose halo covers a whole (n_terms - 1)-application
+        conv: depth radius * (n_terms - 1).  None when unavailable."""
         r = self.stencil_radius
         if r is None:
             return None
-        need = r * max(int(n_terms) - 1, 1)
-        h = need if need <= 8 else -(-need // 8) * 8
-        if h >= self.nside:  # padding may not exceed the face size
-            h = need
-        return self.face_stencil(scale, n_steps=h)
+        return self.face_stencil(scale, n_steps=r * max(int(n_terms) - 1, 1))
 
     def face_stencil(self, scale, n_steps=None):
         """Stencil form of the rescaled Laplacian on the 12-face layout
@@ -532,7 +518,7 @@ def build_sphere_graph(
         (NEST 8-neighbor structure, vectorized O(M) build — the original
         DeepSphere-TF1 construction; requires k=8.  Supports partial skies
         by dropping out-of-mask edges, which keeps the graph
-        stencil-representable — the fast conv path on TPU).
+        stencil-representable — the structured conv path).
     """
     if indices is None:
         indices = np.arange(hp.nside2npix(nside), dtype=np.int64)

@@ -2,8 +2,7 @@
 
 The reference computes graph convolution as repeated sparse matvecs of an
 M x M Laplacian (``/root/reference/src/deepsphere/gnn_layers.py:137-143``
-via ``tf.sparse.sparse_dense_matmul``).  On TPU, gathers are the enemy; but
-for the grid/ring HEALPix graphs (k = 8 -> radius-1, k in {20, 40, 60} ->
+via ``tf.sparse.sparse_dense_matmul``).  For the grid/ring HEALPix graphs (k = 8 -> radius-1, k in {20, 40, 60} ->
 radius 2/3/4 templates) the Laplacian *is* a (2r+1)^2 stencil on the
 (12, nside, nside) face layout (see :mod:`..sphere.faces`), with per-pixel
 weights (edge weights vary over the sphere) and a halo exchange at face
@@ -16,13 +15,14 @@ module extracts that stencil from any grid-structured
   NE, E, SE, S, plus the diagonal/center term last).
 * border fill indices — scatter/gather maps that fill a depth-``n_steps``
   halo around each face from the other faces.
-* ``corrupt`` — for fused multi-step application (``n_steps > 1``): the halo
-  positions near the 8 polar 3-way corners whose neighborhoods are not
-  representable in a rectangular face layout (a constant ~96 positions,
-  independent of nside), plus the interior NEST rows whose values they can
-  reach within ``n_steps - 1`` hops.  Fused kernels must re-correct those
-  rows (see :func:`~deepsphere_tpu.ops.stencil` users); the single-step
-  path (``n_steps == 1``) is exact.
+* ``corrupt`` — for applying the stencil ``n_steps / radius`` times
+  without refilling the halo in between: the halo positions near the 8
+  polar 3-way corners whose neighborhoods are not representable in a
+  rectangular face layout (a constant ~96 positions, independent of
+  nside), plus the interior NEST rows whose values they can reach within
+  ``n_steps - 1`` hops, with an exact recompute "ball".  The per-step path
+  (:mod:`~deepsphere_tpu.ops.stencil`) refills the halo before every
+  application and is exact without them.
 
 Extraction verifies per-row mass conservation against the CSR Laplacian, so
 a graph whose edges are not grid-structured (e.g. a kNN graph that deviates
@@ -71,17 +71,16 @@ def stencil_offsets(radius):
 
 @dataclass(eq=False)
 class FaceStencil:
-    """Static stencil-form Laplacian for ``n_steps`` fused applications.
+    """Static stencil-form Laplacian with an ``n_steps``-deep halo.
 
     The halo fill is stored as four *strip* gathers (west/east strips span
     the full padded width including corners; south/north cover the rest).
     Strips land in the padded array via static-slice updates
-    (``dynamic_update_slice``) — TPU executes those at full bandwidth,
-    whereas an index scatter serializes.
+    (``dynamic_update_slice``), never an index scatter.
     """
 
     nside: int
-    n_steps: int  # halo (pad) depth = radius * (fused applications);
+    n_steps: int  # halo (pad) depth = radius * (applications per fill);
     # weights cover positions of depth <= n_steps - radius
     scale: float
     weights: np.ndarray
@@ -89,8 +88,8 @@ class FaceStencil:
     # R = roundup(n_steps, 8), P_l = roundup(nside + 2*n_steps, 128):
     # interior face row x at row x (lane y + n_steps for face col y);
     # rows [n, n+R) hold face rows [-R, 0) (zeros where undefined) and
-    # [n+R, n+2R) hold face rows [n, n+R) — so the fused kernel's window
-    # DMA pieces mirror the activation pieces with 8-aligned slices.
+    # [n+R, n+2R) hold face rows [n, n+R); the per-step path reads the
+    # interior rows [0, n) at lanes [n_steps, n_steps + n).
     # halo strips: face-flat (12*n*n) source rows (clamped) + 0/1 masks
     west_src: np.ndarray  # (12, s, P) int32, P = nside + 2*n_steps
     west_mask: np.ndarray  # (12, s, P) f32
@@ -103,7 +102,7 @@ class FaceStencil:
     n2f: np.ndarray  # (12*n*n,) int32: NEST id at each face-flat position
     f2n: np.ndarray  # (npix,) int32: face-flat position of each NEST pixel
     corrupt_rows: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
-    # NEST rows whose fused-kernel outputs need exact recomputation, plus the
+    # NEST rows whose multi-application outputs need exact recomputation, plus the
     # precomputed recompute "ball": a local ELLPACK over the n_steps-hop
     # neighborhood of the corrupt rows (see ``face_stencil`` for why the
     # rectangular face extension is incomplete near the 8 polar corners)
@@ -120,7 +119,7 @@ class FaceStencil:
     # single-application fix rows (exact-kNN graphs only): interior rows
     # whose edges escape/alias the capture window.  The per-step XLA path
     # overwrites y at these rows with the exact ELLPACK matvec after every
-    # application (the fused kernel instead folds them into corrupt_rows).
+    # application.
     fix_src: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
     # (Rf,) face-flat positions of the fix rows
     fix_idx: np.ndarray = field(default_factory=lambda: np.zeros((0, 9), np.int32))
@@ -234,9 +233,10 @@ def face_stencil(graph, scale, n_steps=None):
         (:data:`..laplacian.KNN_CAPTURE_RADIUS`) with the rare
         escaping/aliasing rows routed to the corrupt-row exact recompute.
     :param scale: spectrum rescale passed to ``graph.ellpack``.
-    :param n_steps: number of fused stencil applications the caller intends
-        (halo depth).  ``1`` (default) is exact; ``>1`` produces a
-        ``corrupt_rows`` set that callers must re-correct.
+    :param n_steps: halo depth in rows (default: the template radius).
+        Applied once per halo refill the stencil is exact at any depth;
+        a depth covering several applications also yields the
+        ``corrupt_rows`` set that multi-application callers must re-correct.
     :raises ValueError: if the graph is not stencil-representable.
     """
     from .laplacian import GRID_RADIUS
@@ -261,11 +261,9 @@ def face_stencil(graph, scale, n_steps=None):
     if n_steps is None:
         n_steps = radius
     # n_steps is a halo DEPTH in rows, not a lap count: any depth >=
-    # radius*(laps) supports that many fused applications (the extra rows
-    # are valid-but-unused margin).  Depths that are not a multiple of the
-    # radius are legal — the fused kernel pads unaligned depths up to the
-    # sublane tile (deep_stencil), which is what keeps its compiled DMA
-    # geometry inside the Mosaic-verified 8-aligned envelope.
+    # radius*(laps) covers that many applications (extra rows are
+    # valid-but-unused margin), and depths that are not a multiple of the
+    # radius are legal.
     if n_steps < radius or n_steps >= nside:
         raise ValueError(
             f"n_steps (halo depth) must be in [radius={radius}, nside), "
@@ -307,8 +305,8 @@ def face_stencil(graph, scale, n_steps=None):
     offsets = stencil_offsets(radius)
     nplanes = len(offsets)
 
-    # padded-activation embedding geometry (rows to a sublane multiple,
-    # lanes to a lane-tile multiple, so fused-kernel band DMAs stay aligned)
+    # padded-activation embedding geometry of the weight planes (rows to a
+    # multiple of 8, lanes to the cface layout's multiple of 128)
     P = nside + 2 * n_steps
     P_r = nside + -(-2 * n_steps // 8) * 8
     P_l = -(-P // 128) * 128
@@ -389,7 +387,7 @@ def face_stencil(graph, scale, n_steps=None):
                 "capture window; graph is not efficiently stencil-capturable"
             )
 
-    # fused-step corruption: halo positions with incomplete neighborhoods
+    # multi-application corruption: halo positions with incomplete neighborhoods
     # poison everything within stencil reach over the remaining
     # applications — Chebyshev distance (n_steps - radius), i.e. that many
     # 8-neighbor BFS hops
@@ -485,7 +483,7 @@ def face_stencil(graph, scale, n_steps=None):
         logger.info(
             f"kNN stencil capture (radius {radius}): {len(seeds_int)} of "
             f"{npix} rows escape the window -> exact per-row recompute "
-            f"({corrupt_rows.shape[0]} corrupt rows for the fused path)"
+            f"({corrupt_rows.shape[0]} corrupt rows for multi-application use)"
         )
 
     n2f = halo_map(nside, 0).reshape(-1).astype(np.int32)

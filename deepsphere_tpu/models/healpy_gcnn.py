@@ -1,12 +1,12 @@
 """HealpyGCNN: the model assembler.
 
-TPU-native re-design of the reference assembler
+Re-design of the reference assembler
 (``/root/reference/src/deepsphere/healpy_networks.py:14-167``): scans the
 layer list for resolution changes, validates the pixel-index set against the
 NEST hierarchy, builds one :class:`~deepsphere_tpu.graph.SphereGraph` per
 resolution level (memoized — the reference rebuilds the graph for every
 layer), instantiates the deferred graph layers and wires everything into a
-single Flax module.
+single module (:mod:`deepsphere_tpu.nn.core`).
 
 The wrapper keeps a Keras-like stateful surface (``build`` / ``__call__`` /
 ``summary`` / ``save_weights`` / ``load_weights`` — parity with the usage in
@@ -26,14 +26,13 @@ from __future__ import annotations
 import inspect
 from typing import Any, Optional, Sequence, Tuple
 
-import flax
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .._logger import logger
 from ..graph import build_sphere_graph
+from ..nn import core as nn
 from ..nn.healpy_layers import (
     Healpy_ViT,
     HealpyPool,
@@ -60,10 +59,10 @@ def _accepts_training(layer):
 class SequentialModel(nn.Module):
     """Sequential container passing ``training`` to layers that accept it.
 
-    ``layers`` maps STABLE names to modules (flax names dict-attribute
-    children ``layers_<key>``, so parameter/checkpoint trees do not depend
-    on which internal layout the assembler chose or how many layout
-    converters it inserted); ``order`` fixes the execution order.
+    ``layers`` maps STABLE names to modules (each runs as the child
+    ``layers_<key>``, so parameter/checkpoint trees do not depend on which
+    internal layout the assembler chose or how many layout converters it
+    inserted); ``order`` fixes the execution order.
 
     Each layer runs under a ``jax.named_scope`` so per-layer costs show up
     in ``jax.profiler`` traces (the reference has no tracing at all —
@@ -73,8 +72,8 @@ class SequentialModel(nn.Module):
     order: Tuple[str, ...]
     remat: bool = False  # per-layer jax.checkpoint: recompute activations
     # on the backward pass instead of storing them — trades ~1 extra
-    # forward of FLOPs for O(depth) -> O(1) activation HBM, the standard
-    # TPU move for training deep stacks at nside >= 512
+    # forward of FLOPs for O(depth) -> O(1) activation memory, the standard
+    # move for training deep stacks at nside >= 512
 
     @nn.compact
     def __call__(self, x, training=False):
@@ -84,7 +83,7 @@ class SequentialModel(nn.Module):
             return mdl(xx)
 
         for key in self.order:
-            layer = self.layers[key]
+            layer = self.layers[key].clone(name=f"layers_{key}")
             with jax.named_scope(f"{type(layer).__name__}_{key}"):
                 if self.remat:
                     x = nn.remat(_run)(layer, x)
@@ -124,7 +123,7 @@ class HealpyGCNN:
     :param indices: 1d array of NEST pixel ids covered by the input
     :param layers: list of layer specs — deferred graph layers
         (``HealpyChebyshev`` & co.), concrete resolution layers
-        (``HealpyPool`` & co.), or arbitrary Flax modules
+        (``HealpyPool`` & co.), or any :class:`deepsphere_tpu.nn.core.Module`
     :param n_neighbors: kNN graph degree; 8 (default), 20, 40 or 60
     :param max_batch_size, initial_Fin: accepted for API parity with the
         reference; XLA has no 2^31 SpMM limit so no matmul splitting is
@@ -133,9 +132,9 @@ class HealpyGCNN:
     :param kernel_width: optional Gaussian kernel width override for the
         graph edge weights
     :param remat: checkpoint every layer (``jax.checkpoint`` via
-        ``nn.remat``): the backward pass recomputes activations instead of
-        storing them — one extra forward of FLOPs for O(1) activation HBM,
-        the standard trade for training deep stacks at nside >= 512
+        ``core.remat``): the backward pass recomputes activations instead of
+        storing them — one extra forward of FLOPs for O(1) activation
+        memory, the standard trade for training deep stacks at nside >= 512
     """
 
     def __init__(
@@ -278,12 +277,12 @@ class HealpyGCNN:
 
         Two internal layouts exist, best first:
 
-        * **cface** — channels-first padded face images (B, F, 12, n, P_l),
-          the fused Pallas conv's native layout: a chain of convs / pools /
-          pseudo-convs runs with ZERO per-layer permutations or halo
-          materializations (see ``ops.pallas_stencil``).  Chosen for every
-          maximal run of layers whose convs support the deep stencil
-          (structural check only, so plans are platform-independent).
+        * **cface** — channels-first padded face images (B, F, 12, n, P_l):
+          a chain of convs / pools / pseudo-convs runs with no Morton
+          permutation between layers (see ``ops.stencil.cfp_geometry``).
+          Chosen for every maximal run of unsharded layers whose convs
+          support the deep stencil (structural check only, so plans are
+          platform-independent).
         * **face** — face-flat pixel axis (B, M, F): still removes the
           Morton permutations but pays per-conv transposes; used for
           stencil-capable convs that cannot run cface (e.g. Bernstein).
@@ -300,14 +299,12 @@ class HealpyGCNN:
             ResidualLayer,
             _GraphPolyConv,
         )
-        from ..ops.pallas_stencil import cfp_structural_available
+        from ..ops.stencil import cfp_structural_available
 
         def shardable(layer):
-            """A shard_cfg is cface-compatible when its face axis divides
-            the 12 HEALPix faces (the conv then runs the face-sharded fused
-            kernel, ``parallel.cface_sharded.cface_model_conv``)."""
-            cfg = layer.shard_cfg
-            return cfg is None or 12 % cfg.n_pixel_shards == 0
+            """Pixel-sharded convs run the halo-sharded ELLPACK path in
+            NEST order, so only unsharded convs join a cface segment."""
+            return layer.shard_cfg is None
 
         def full_sphere(layer):
             g = layer.graph
@@ -470,8 +467,8 @@ class HealpyGCNN:
     def _get_graph(self, nside, indices):
         key = (nside, hash(np.ascontiguousarray(indices).tobytes()))
         if key not in self.graphs:
-            # "auto": the TPU-native grid/ring construction
-            # (stencil-compatible -> fused conv path, O(M) build, exact
+            # "auto": the grid/ring construction (stencil-compatible ->
+            # structured conv path, O(M) build, exact
             # masked-sky support) whenever a template exists for k — else
             # the kNN graph of the reference's pygsp backend.  Pass
             # graph_method="knn" for strict reference-graph semantics;
@@ -580,12 +577,12 @@ class HealpyGCNN:
         print_fn(format_summary("HealpyGCNN", rows, total))
 
     def param_key(self, index):
-        """The flax submodule key for the user layer at ``index`` — stable
+        """The submodule key for the user layer at ``index`` — stable
         across internal-layout plans (dict-named children)."""
         return f"layers_layer_{index}"
 
     def _layer_output_shapes(self, input_shape):
-        """Map flax submodule key -> output shape via a shape-only trace."""
+        """Map submodule key -> output shape via a shape-only trace."""
 
         def run():
             x = jnp.zeros(tuple(input_shape), jnp.float32)
@@ -779,25 +776,28 @@ class HealpyGCNN:
         return np.concatenate(outs, axis=0)
 
     # ------------------------------------------------------------------
-    # checkpointing (msgpack, flax.serialization)
+    # checkpointing (numpy .npz keyed by variable path)
     # ------------------------------------------------------------------
 
     def save_weights(self, path):
-        """Serialize params/batch_stats (msgpack).  The "graph_tables"
-        collection is deterministic precompute — excluded from checkpoints
-        (it would add 100s of MB at large nside)."""
+        """Write params/batch_stats to ``path`` as an ``.npz`` keyed by
+        variable path (:func:`deepsphere_tpu.train.checkpoint.save_tree`).
+        The "graph_tables" collection is deterministic precompute —
+        excluded from checkpoints (it would add 100s of MB at large nside)."""
+        from ..train.checkpoint import save_tree
+
         if self.variables is None:
             raise ValueError("Model has no variables yet; call build() first.")
-        state = {k: v for k, v in self.variables.items() if k != "graph_tables"}
-        with open(path, "wb") as f:
-            f.write(flax.serialization.to_bytes(state))
+        save_tree(path, {k: v for k, v in self.variables.items()
+                         if k != "graph_tables"})
 
     def load_weights(self, path):
+        from ..train.checkpoint import load_tree
+
         if self.variables is None:
             raise ValueError("Build the model before loading weights.")
         target = {k: v for k, v in self.variables.items() if k != "graph_tables"}
-        with open(path, "rb") as f:
-            restored = flax.serialization.from_bytes(target, f.read())
+        restored = jax.tree_util.tree_map(jnp.asarray, load_tree(path, target))
         if "graph_tables" in self.variables:
             restored["graph_tables"] = self.variables["graph_tables"]
         self.variables = restored

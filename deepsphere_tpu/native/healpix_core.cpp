@@ -2,7 +2,7 @@
 //
 // The reference delegates its geometry and graph construction to native
 // libraries (healpy's C++ HEALPix core, scipy/ARPACK, sklearn's BallTree —
-// see SURVEY.md §2.1).  This is the TPU framework's equivalent: a small
+// see SURVEY.md §2.1).  This is this framework's equivalent: a small
 // C-ABI library that produces, in one pass, everything the device needs
 // for a grid-structured sphere graph at a given nside —
 //

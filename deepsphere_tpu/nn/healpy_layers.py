@@ -11,7 +11,7 @@ resolution is built (``healpy_layers.py:219-507``).
 
 Factories expose ``_get_layer(graph)`` taking a
 :class:`~deepsphere_tpu.graph.SphereGraph` (instead of a scipy Laplacian /
-adjacency — the TPU-native graph carrier).
+adjacency — this package's graph carrier).
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def HealpySmoothing(operator=None, mask=None, nside=None, indices=None,
     """Smoothing layer constructor covering all three call styles:
 
     * ``HealpySmoothing(operator=op)`` — prebuilt
-      :class:`~deepsphere_tpu.nn.smoothing.SmoothingOperator` (TPU-native
-      form; full control of method/tolerance).
+      :class:`~deepsphere_tpu.nn.smoothing.SmoothingOperator` (full
+      control of method/tolerance).
     * ``HealpySmoothing(nside=..., indices=..., sigma=...)`` — the
       reference's constructor surface
       (``/root/reference/src/deepsphere/healpy_layers.py:510-575``): the

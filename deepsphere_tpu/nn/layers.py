@@ -1,6 +1,6 @@
-"""Flax layer zoo: graph convolutions, residual blocks and HEALPix pooling.
+"""Layer zoo: graph convolutions, residual blocks and HEALPix pooling.
 
-TPU-native re-design of the reference layer zoo
+Re-design of the reference layer zoo
 (``/root/reference/src/deepsphere/gnn_layers.py`` and the concrete layers in
 ``healpy_layers.py``):
 
@@ -14,11 +14,11 @@ TPU-native re-design of the reference layer zoo
   as a reshape-reduce (Keras Pool1D with kernel == stride is exactly that).
 * ``HealpyPseudoConv`` / ``HealpyPseudoConv_Transpose`` — learnable 4^p
   down/up-sampling (``healpy_layers.py:87-216``); a Conv1D with kernel ==
-  stride is a blocked matmul, which is how the MXU wants it anyway.
+  stride is a blocked matmul.
 
 All layers keep the reference's ``(batch, nodes, channels)`` tensor contract.
 Cross-replica batch-norm for data-parallel training is supported via
-``bn_axis_name`` (maps to ``flax.linen.BatchNorm(axis_name=...)``, i.e. psum
+``bn_axis_name`` (maps to ``core.BatchNorm(axis_name=...)``, i.e. pmean
 batch stats over the mesh axis).
 """
 
@@ -26,12 +26,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, ClassVar, Optional, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .. import config
+from . import core as nn
 from ..graph import SphereGraph
 from ..ops import spmv
 from ..ops.layout import face_to_nest, nest_to_face, nside_of_axis
@@ -125,12 +125,12 @@ class CfaceReEmbed(nn.Module):
 
     @nn.compact
     def __call__(self, x, training=False):
-        from ..ops.pallas_stencil import cfp_geometry
+        from ..ops.stencil import cfp_geometry
 
         if self.off_in == self.off_out:
             return x
         B, F, _, n, _ = x.shape
-        _, P_out = cfp_geometry(n, self.off_out)
+        P_out = cfp_geometry(n, self.off_out)
         xi = x[:, :, :, :, self.off_in : self.off_in + n]
         return jnp.concatenate(
             [
@@ -145,7 +145,7 @@ class CfaceReEmbed(nn.Module):
 class _CfaceBatchNorm(nn.Module):
     """BatchNorm over the cface layout with interior-only statistics.
 
-    Mirrors ``flax.linen.BatchNorm`` semantics and state layout (so
+    Mirrors :class:`.core.BatchNorm` semantics and state layout (so
     checkpoints are layout-independent), but computes batch statistics over
     the interior lanes only — the layout's halo/pad lanes hold garbage that
     must not pollute the stats.  The full array is normalized with those
@@ -272,7 +272,7 @@ class _GraphPolyConv(nn.Module):
         # The static graph arrays are 100s of MB at large nside: they must
         # reach the computation as runtime arguments, NOT as jit constants
         # (constants are baked into the HLO module).  They live in the
-        # "graph_tables" variable collection, which flax threads through
+        # "graph_tables" variable collection, which apply threads through
         # ``variables`` into every apply call.
         if self.shard_cfg is not None:
             from ..parallel.halo import shard_ellpack_cached
@@ -289,19 +289,14 @@ class _GraphPolyConv(nn.Module):
         else:
             st = None
             if self.conv_method in ("auto", "stencil"):
-                # prefer the deep (n_steps = K-1) stencil: it feeds the
-                # fused Pallas kernel on TPU and still runs the per-step XLA
-                # path elsewhere.  The choice is platform-independent so a
-                # model initialized on CPU applies unchanged on TPU.
+                # the deep (n_steps = K-1) stencil is the one the cface
+                # plan builds, so both layouts share one extraction
                 if self._basis_kind in ("cheby", "mono") and n_terms >= 2:
                     r = self.graph.stencil_radius
                     if r is not None and r >= 3 and n_terms > 2:
-                        # deep-radius graphs (k=40/60): the one-shot fused
-                        # kernel's h = r*(K-1) window is measured slower
-                        # than per-step execution (PERFORMANCE.md r4), so
-                        # build the SHALLOW (n_steps == radius) stencil —
-                        # ops.stencil.lap_chain_conv chains single-lap
-                        # fused kernels on it (per-step XLA elsewhere)
+                        # deep-radius graphs (k=40/60): a halo of r*(K-1)
+                        # rows outgrows small faces, and one application
+                        # needs only r — build the shallow stencil
                         st = self.graph.face_stencil(self._scale)
                     else:
                         st = self.graph.deep_stencil(self._scale, n_terms)
@@ -321,21 +316,15 @@ class _GraphPolyConv(nn.Module):
             if st is not None:
                 from ..ops.stencil import stencil_graph_conv, stencil_tables
 
-                # bf16-I/O needs the R16-extended bf16 weight planes built
-                # once here — set config.set_conv_dtype BEFORE model.build
                 tables = self.variable(
-                    "graph_tables", "stencil",
-                    lambda: stencil_tables(
-                        st, bf16_io=config.conv_dtype == "bfloat16_io"
-                    ),
+                    "graph_tables", "stencil", stencil_tables, st
                 ).value
                 npix_full = 12 * st.nside * st.nside
                 if M != npix_full:
                     # masked sky on the stencil path: embed the masked rows
                     # into the full sphere (zeros outside — exact, see
                     # graph.stencil.face_stencil), convolve, slice back.
-                    # Both directions are gathers (take), not scatters —
-                    # TPU executes takes at bandwidth, scatters serialize.
+                    # Both directions are gathers (take), not scatters.
                     def _embed_maps():
                         ind = np.asarray(self.graph.indices, dtype=np.int64)
                         inv = np.full(npix_full, M, dtype=np.int32)
@@ -401,25 +390,11 @@ class _GraphPolyConv(nn.Module):
             init = self.initializer
         kernel = self.param("kernel", init, (Fin * n_terms, Fout), jnp.float32)
         tables = self.variable(
-            "graph_tables", "stencil",
-            lambda: stencil_tables(
-                st, bf16_io=config.conv_dtype == "bfloat16_io"
-            ),
+            "graph_tables", "stencil", stencil_tables, st
         ).value
-        if self.shard_cfg is not None:
-            # faces on the mesh: the fused kernel runs per face shard with
-            # one edge-band all_gather as the only activation communication
-            from ..parallel.cface_sharded import cface_model_conv
-
-            tables_dev = {k: jnp.asarray(v) for k, v in tables.items()}
-            y = cface_model_conv(
-                st, tables_dev, x, kernel, n_terms, self.basis_kind,
-                self.shard_cfg,
-            )
-        else:
-            y = stencil_graph_conv_cface(
-                st, x, kernel, n_terms, self.basis_kind, tables=tables
-            )
+        y = stencil_graph_conv_cface(
+            st, x, kernel, n_terms, self.basis_kind, tables=tables
+        )
         if self.use_bn:
             y = _CfaceBatchNorm(
                 off=st.n_steps,
@@ -522,7 +497,7 @@ class ResidualLayer(nn.Module):
         bn_kwargs = dict(self.bn_kwargs or {})
         bn_kwargs.pop("axis", None)  # (B, M, F) -> always normalize features
         # the reference instantiates plain Keras normalization layers here
-        # (gnn_layers.py:375-382), whose DEFAULTS differ from flax:
+        # (gnn_layers.py:375-382), whose DEFAULTS differ from core.BatchNorm:
         # epsilon=1e-3 (both kinds), momentum=0.99 + affine (batch norm).
         # Apply those defaults so outputs match the TF2 reference to <1e-5;
         # explicit bn_kwargs still override.
@@ -603,7 +578,7 @@ class HealpyPool(nn.Module):
         if self.layout == "cface":
             # spatial 2^p x 2^p reduce on the interior + re-embed for the
             # next conv's geometry
-            from ..ops.pallas_stencil import cfp_geometry
+            from ..ops.stencil import cfp_geometry
 
             B, F, _, n, _ = x.shape
             sp = 2**self.p
@@ -613,7 +588,7 @@ class HealpyPool(nn.Module):
             y = reducer(blocks, axis=(4, 6))  # (B, F, 12, n/sp, n/sp)
             n2 = n // sp
             off = self.cface_off_out
-            _, P_out = cfp_geometry(n2, off)
+            P_out = cfp_geometry(n2, off)
             return jnp.concatenate(
                 [
                     jnp.zeros((B, F, 12, n2, off), y.dtype),
@@ -697,7 +672,7 @@ class HealpyPseudoConv(nn.Module):
 
     def _call_cface(self, x):
         """Blocked matmul on the interior of the cface layout + re-embed."""
-        from ..ops.pallas_stencil import cfp_geometry
+        from ..ops.stencil import cfp_geometry
 
         B, Fin, _, n, _ = x.shape
         fs = self.filter_size
@@ -720,7 +695,7 @@ class HealpyPseudoConv(nn.Module):
             y = y + bias.reshape(1, self.Fout, 1, 1, 1)
         n2 = n // sp
         off = self.cface_off_out
-        _, P_out = cfp_geometry(n2, off)
+        P_out = cfp_geometry(n2, off)
         return jnp.concatenate(
             [
                 jnp.zeros((B, self.Fout, 12, n2, off), y.dtype),
@@ -789,7 +764,7 @@ class HealpyPseudoConv_Transpose(nn.Module):
 
     def _call_cface(self, x):
         """Each coarse interior pixel emits a 2^p x 2^p tile; re-embed."""
-        from ..ops.pallas_stencil import cfp_geometry
+        from ..ops.stencil import cfp_geometry
 
         B, Fin, _, n, _ = x.shape
         fs = self.filter_size
@@ -809,7 +784,7 @@ class HealpyPseudoConv_Transpose(nn.Module):
             bias = self.param("bias", nn.initializers.zeros, (self.Fout,), jnp.float32)
             y = y + bias.reshape(1, self.Fout, 1, 1, 1)
         off = self.cface_off_out
-        _, P_out = cfp_geometry(n2, off)
+        P_out = cfp_geometry(n2, off)
         return jnp.concatenate(
             [
                 jnp.zeros((B, self.Fout, 12, n2, off), y.dtype),
@@ -839,9 +814,6 @@ class Dense(nn.Module):
 
     @nn.compact
     def __call__(self, x, training=False):
-        y = nn.Dense(
-            self.features, use_bias=self.use_bias, name="dense",
-            precision=config.precision(),
-        )(x)
+        y = nn.Dense(self.features, use_bias=self.use_bias, name="dense")(x)
         act = resolve_activation(self.activation)
         return act(y) if act is not None else y

@@ -1,12 +1,13 @@
 """Gaussian smoothing layer on (possibly partial) HEALPix maps.
 
-TPU-native re-design of ``HealpySmoothing``
+Re-design of ``HealpySmoothing``
 (``/root/reference/src/deepsphere/healpy_layers.py:510-853``): the Gaussian
 kernel is precomputed host-side as a fixed-width row-normalized ELLPACK
-operator (BallTree haversine kNN within ``n_sigma_support * sigma``), and the
-smoothing is a padded-gather SpMV on TPU — one fixed-width weighted sum per
+operator (great-circle neighbors within ``n_sigma_support * sigma``), and
+the smoothing is a padded-gather SpMV — one fixed-width weighted sum per
 pixel, applied per channel with the repetition trick for multi-scale channels
-(Gaussian closure under convolution, ``healpy_layers.py:592-621``).
+(Gaussian closure under convolution, ``healpy_layers.py:592-621``) — or, for
+wide kernels, repeated structured stencil matvecs.
 """
 
 from __future__ import annotations
@@ -14,12 +15,11 @@ from __future__ import annotations
 import os
 from typing import Any, Optional
 
-import flax.linen as nn
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .._logger import logger
+from . import core as nn
 from ..ops.spmv import ellpack_spmv
 from ..sphere import healpix as hp
 
@@ -32,6 +32,27 @@ def _rad_to_arcmin(theta):
 
 def _arcmin_to_rad(theta):
     return theta * np.pi / (60 * 180)
+
+
+def _great_circle_neighbors(nside, indices, nest, radius):
+    """For every pixel of ``indices``, the ``k`` nearest pixels of the set
+    by great-circle angle, where ``k`` is the largest number of them any
+    pixel has within ``radius`` radians (the reference's BallTree query,
+    ``healpy_layers.py:766-829``).  Returns ``(dist (n, k) radians,
+    inds (n, k) int64)``, nearest first."""
+    from scipy.spatial import cKDTree
+
+    xyz = hp.pix2vec(nside, np.asarray(indices), nest=nest)
+    tree = cKDTree(xyz)
+    # chord length of the angular radius; angle = 2 arcsin(chord / 2)
+    chord = 2.0 * np.sin(min(radius, np.pi) / 2.0)
+    counts = tree.query_ball_point(xyz, chord, return_length=True)
+    k = min(int(np.max(counts)), len(xyz))
+    dist, inds = tree.query(xyz, k=k)
+    dist = dist.reshape(len(xyz), k)
+    inds = inds.reshape(len(xyz), k)
+    ang = 2.0 * np.arcsin(np.clip(dist / 2.0, 0.0, 1.0))
+    return ang, inds.astype(np.int64)
 
 
 def _template_ellpack(nside, sig, r, n_sigma_support, indices=None):
@@ -141,16 +162,9 @@ def estimate_stencil_error(sigma_rad, nside, n_sigma_support=3,
     idx_t, val_t = _template_ellpack(nside_proxy, sig_each, r,
                                      n_sigma_support)
 
-    # reference-shaped BallTree kernel at the proxy scale
-    from sklearn.neighbors import BallTree
-
-    lon, lat = hp.pix2ang(nside_proxy, np.arange(npix), nest=True,
-                          lonlat=True)
-    theta = np.stack([np.radians(lat), np.radians(lon)], axis=1)
-    tree = BallTree(theta, metric="haversine")
-    radius = sig_p * n_sigma_support
-    kq = int(np.max(tree.query_radius(theta, r=radius, count_only=True)))
-    dist, inds = tree.query(theta, k=min(kq, npix), sort_results=True)
+    # reference-shaped great-circle kernel at the proxy scale
+    dist, inds = _great_circle_neighbors(nside_proxy, np.arange(npix), True,
+                                         sig_p * n_sigma_support)
     val_b = np.exp(-0.5 / sig_p**2 * dist**2)
 
     x = np.random.RandomState(seed).normal(size=npix)
@@ -164,12 +178,12 @@ def estimate_stencil_error(sigma_rad, nside, n_sigma_support=3,
 class SmoothingOperator:
     """Host-side precompute of the sparse Gaussian smoothing kernel.
 
-    Hashable by content key so it can live on a Flax module.  Mirrors the
+    Hashable by content key so it can live on a module.  Mirrors the
     constructor logic of the reference layer (fwhm/sigma handling,
     per-channel repetitions inference, disk cache) at
     ``healpy_layers.py:515-664``.
 
-    ``method`` selects the TPU execution form:
+    ``method`` selects the execution form:
 
     * ``"stencil"`` — the kernel is decomposed into ``m`` repetitions of a
       narrow Gaussian (sigma/sqrt(m); Gaussian closure under convolution —
@@ -177,9 +191,9 @@ class SmoothingOperator:
       ``healpy_layers.py:592-621``) whose 3-sigma support fits a
       radius-<=4 face-grid ring template, and each repetition runs as a
       structured stencil matvec — no gathers.  At nside=1024 with
-      arcmin-scale sigma the BallTree kernel reaches hundreds of
-      neighbors, i.e. hundreds of serialized full-map gathers on TPU;
-      this path replaces them with a handful of 81-tap stencils.
+      arcmin-scale sigma the exact kernel reaches hundreds of
+      neighbors, i.e. hundreds of full-map gathers; this path replaces
+      them with a handful of 81-tap stencils.
     * ``"ellpack"`` — the reference-shaped fixed-width gather SpMV.
     * ``"auto"`` (default) — stencil when the support is wide (> 32
       neighbors) and the template applies, else ellpack.
@@ -376,24 +390,16 @@ class SmoothingOperator:
             def ellpack(self, scale):
                 return self._ell
 
-        # fused depth: extract the stencil deep enough that ALL m (x
-        # per-channel) repetitions run as ONE fused Pallas pass — S^j x is
+        # chain depth: extract the stencil deep enough that all m (x
+        # per-channel) repetitions run as one graph-conv pass — S^j x is
         # the j-th monomial recursion term, selected by a one-hot
-        # contraction (see HealpySmoothing._apply_stencil).  The kernel
-        # geometry caps the halo at h = r * n_apps (2h <= 128 lanes,
-        # window rows 8-aligned: ops.pallas_stencil.cfp_structural_available);
-        # when the full chain does not fit, fall back to one application
-        # per pass (n_apps = 1, the per-step XLA path).
+        # contraction (see HealpySmoothing._apply_stencil).  The halo
+        # h = r * n_apps must stay inside a face; longer chains run in
+        # ceil(m_total / n_apps) passes.
         reps_arr = self.per_channel_repetitions
         reps_max = int(np.max(reps_arr)) if reps_arr is not None else 1
         m_total = m * reps_max
-        h_fits = lambda j: (
-            2 * r * j <= 128 and nside % 8 == 0
-            and nside >= -(-r * j // 8) * 8 and r * j < nside
-        )
-        n_apps = m_total
-        while n_apps > 1 and not h_fits(n_apps):
-            n_apps -= 1  # chunked fusion: ceil(m_total / n_apps) passes
+        n_apps = max(1, min(m_total, (nside - 1) // r))
 
         # the template build + radius-r extraction is minutes of single-core
         # numpy at nside>=512: disk-cache the extracted stencil, keyed by
@@ -429,20 +435,13 @@ class SmoothingOperator:
         self.stencil_apps = n_apps
 
     def _build_kernel(self):
-        """BallTree haversine kNN within n_sigma_support * sigma, evaluated
+        """Great-circle neighbors within n_sigma_support * sigma, evaluated
         with the Gaussian kernel (``healpy_layers.py:766-829``)."""
-        from sklearn.neighbors import BallTree
-
-        lon, lat = hp.pix2ang(self.nside, self.indices, nest=self.nest, lonlat=True)
-        theta = np.stack([np.radians(lat), np.radians(lon)], axis=1)
-        tree = BallTree(theta, metric="haversine")
-
-        radius = self.sigma_rad * self.n_sigma_support
-        counts = tree.query_radius(theta, r=radius, count_only=True)
-        max_neighbors = int(np.max(counts))
-        logger.info(f"The maximal number of neighbors within that radius is {max_neighbors}")
-
-        dist, inds = tree.query(theta, k=min(max_neighbors, self.n_indices), sort_results=True)
+        dist, inds = _great_circle_neighbors(
+            self.nside, self.indices, self.nest,
+            self.sigma_rad * self.n_sigma_support,
+        )
+        logger.info(f"The maximal number of neighbors within that radius is {inds.shape[1]}")
         val = np.exp(-0.5 / self.sigma_rad**2 * dist**2).astype(np.float32)
         return inds.astype(np.int64), val
 
@@ -454,7 +453,7 @@ class SmoothingOperator:
 
 
 class HealpySmoothing(nn.Module):
-    """Flax smoothing layer; ``operator`` is a precomputed
+    """Smoothing layer; ``operator`` is a precomputed
     :class:`SmoothingOperator`; ``mask`` optionally zeroes the padding region
     (``healpy_layers.py:758-759``)."""
 
@@ -517,8 +516,7 @@ class HealpySmoothing(nn.Module):
         (``stencil_apps == m_total``), every channel's power S^{j_c} x is
         ONE graph-conv call: the monomial recursion terms are exactly the
         powers of S, and a one-hot contraction selects term ``j_c`` for
-        channel ``c`` — on TPU this is a single fused Pallas pass over the
-        map instead of m_total serialized halo-pad matvecs."""
+        channel ``c``."""
         from ..ops.stencil import stencil_graph_conv, stencil_tables
 
         st = op.stencil
@@ -555,14 +553,14 @@ class HealpySmoothing(nn.Module):
         # monomial recursion term; a one-hot contraction picks the power
         # each channel still needs (finished channels ride term 0 = id).
         # n_terms is pinned to apps+1 so every pass matches the stencil's
-        # extraction depth and stays on the fused kernel.
+        # extraction depth.  S is row-normalized, hence not symmetric; the
+        # chain is plain jnp, so autodiff applies S^T.
         conv_tables = {k: v for k, v in tables.items()
                        if k not in ("mask_ind", "mask_inv")}
         n_terms = apps + 1
-        rem0 = remaining.copy()
 
-        def chain(xbmc, conv_tables, fused):
-            rem = rem0.copy()
+        def chain(xbmc):
+            rem = remaining.copy()
             while rem.max() > 0:
                 j = np.minimum(rem, apps)
                 wk = np.zeros((C, n_terms, C), np.float32)
@@ -571,40 +569,13 @@ class HealpySmoothing(nn.Module):
                 xbmc = stencil_graph_conv(
                     st, xbmc, jnp.asarray(wk.reshape(C * n_terms, C)),
                     n_terms, "mono", tables=conv_tables, layout="face",
-                    fused=fused,
                 )
                 rem = rem - j
             return xbmc
 
-        # The smoothing operator S is row-normalized, hence NOT symmetric —
-        # the fused kernel's custom VJP (built for the symmetric rescaled
-        # Laplacian) would silently backpropagate S instead of S^T.  The
-        # chain is linear in x, so run the fused kernel forward and take
-        # the EXACT gradient as the linear transpose of the per-step XLA
-        # chain (whose autodiff is plain jnp and therefore correct).
-        @jax.custom_vjp
-        def smooth_chain(xbmc, conv_tables):
-            return chain(xbmc, conv_tables, "auto")
-
-        def _fwd(xbmc, conv_tables):
-            return smooth_chain(xbmc, conv_tables), conv_tables
-
-        def _bwd(conv_tables, dy):
-            # the chain maps (B, npix, C) -> (B, npix, C) in the input's
-            # dtype, so dy's aval IS the input aval (works for any dtype
-            # and under vmap; residuals cannot carry aval/dtype objects)
-            tr = jax.linear_transpose(
-                lambda v: chain(v, conv_tables, "never"),
-                jax.ShapeDtypeStruct(dy.shape, dy.dtype),
-            )
-            (dx,) = tr(dy)
-            return dx, jax.tree_util.tree_map(lambda _: None, conv_tables)
-
-        smooth_chain.defvjp(_fwd, _bwd)
-
         xface = jnp.take(x2d, tables["n2f"], axis=0)
         xbmc = jnp.transpose(xface.reshape(npix, B, C), (1, 0, 2))
-        xbmc = smooth_chain(xbmc, conv_tables)
+        xbmc = chain(xbmc)
         y2d = jnp.transpose(xbmc, (1, 0, 2)).reshape(npix, B * C)
         y2d = jnp.take(y2d, tables["f2n"], axis=0)
         if M != npix:

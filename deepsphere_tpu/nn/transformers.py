@@ -1,7 +1,7 @@
 """Graph attention layers: ViT over NEST superpixels and edge-sparse
 graph transformer.
 
-TPU-native re-design of
+Re-design of
 ``/root/reference/src/deepsphere/gnn_transformers.py:113-450``:
 
 * ``AddPositionEmbs`` — learned additive positional embedding
@@ -22,11 +22,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional, Union
 
-import flax.linen as nn
 import jax.numpy as jnp
 import numpy as np
 
 from .. import config
+from . import core as nn
 from ..graph import SphereGraph
 from ..ops.attention import edge_sparse_attention, scaled_dot_product_attention
 from ..utils import resolve_activation
@@ -48,7 +48,7 @@ class AddPositionEmbs(nn.Module):
 
 class _EdgeSet:
     """Hashable wrapper for a static (E, 2) edge-index array so it can live
-    on a Flax module without retracing issues."""
+    on a module without retracing issues."""
 
     def __init__(self, edge_idx, num_nodes):
         self.edge_idx = np.asarray(edge_idx, dtype=np.int64)
@@ -99,10 +99,9 @@ class MultiHeadAttention(nn.Module):
         def split_heads(t):
             return jnp.transpose(t.reshape(B, S, self.num_heads, depth), (0, 2, 1, 3))
 
-        prec = config.precision()
-        q = split_heads(nn.Dense(self.d_model, name="wq", precision=prec)(x))
-        k = split_heads(nn.Dense(self.d_model, name="wk", precision=prec)(x))
-        v = split_heads(nn.Dense(self.d_model, name="wv", precision=prec)(x))
+        q = split_heads(nn.Dense(self.d_model, name="wq")(x))
+        k = split_heads(nn.Dense(self.d_model, name="wk")(x))
+        v = split_heads(nn.Dense(self.d_model, name="wv")(x))
 
         if self.edges is None:
             attn, _ = scaled_dot_product_attention(q, k, v, mask)
@@ -145,7 +144,7 @@ class MultiHeadAttention(nn.Module):
             nn.LayerNorm(epsilon=1e-3, name="layer_norm2")(concat)
             if self.use_norm else concat
         )
-        out = nn.Dense(self.d_model, name="dense", precision=prec)(out)
+        out = nn.Dense(self.d_model, name="dense")(out)
         act = resolve_activation(self.activation) or (lambda t: t)
         out = act(out)
         return out + concat
@@ -186,7 +185,7 @@ class GraphViT(nn.Module):
             raise IOError(
                 f"Input shape {x.shape} not compatible with the embedding filter size {fs}"
             )
-        # Conv1D(kernel == stride == 4^p) == blocked matmul (one MXU matmul)
+        # Conv1D(kernel == stride == 4^p) == one blocked matmul
         kernel = self.param(
             "embed_kernel",
             nn.initializers.glorot_uniform(),
@@ -240,7 +239,7 @@ class GraphTransformer(nn.Module):
 
     @nn.compact
     def __call__(self, x, training=False):
-        y = nn.Dense(self.embedding_size, name="embed", precision=config.precision())(x)
+        y = nn.Dense(self.embedding_size, name="embed")(x)
         if self.positional_encoding:
             y = AddPositionEmbs(name="pos_encoder")(y)
         for i in range(self.n_layers):

@@ -1,6 +1,6 @@
 """Dense and edge-sparse attention kernels.
 
-TPU-native re-implementation of the attention math in
+Re-implementation of the attention math in
 ``/root/reference/src/deepsphere/gnn_transformers.py:14-106``:
 
 * ``scaled_dot_product_attention`` — standard SDPA with additive -1e9 masking
@@ -13,8 +13,8 @@ TPU-native re-implementation of the attention math in
   ``gnn_transformers.py:95``); pass ``stabilized=False`` for bit-level
   behavioral parity.
 
-On TPU the segment reductions lower to one-hot matmul/scatter patterns that
-XLA handles well for the <1% edge densities this is designed for
+The segment reductions lower to scatter-add patterns sized by the edge
+count, which suits the <1% edge densities this is designed for
 (``gnn_transformers.py:161-162``).  The edge list must be sorted by
 destination (row) — guaranteed by ``SphereGraph.edge_idx``.
 """

@@ -3,8 +3,8 @@
 Within a HEALPix base face, NEST ordering is the Morton (z-order) curve of
 the (x, y) face coordinates, so converting a NEST-ordered pixel axis to the
 raster (12, n, n) face layout is a *structured* permutation: log2(nside)
-rank-7 reshape/transpose passes, each a full-bandwidth dense copy.  On TPU
-this beats a row gather, and — far more importantly — it lets the whole
+rank-7 reshape/transpose passes, each a dense copy with no gather, and —
+far more importantly — it lets the whole
 model run natively in face layout so the hot path does no permutation at
 all (the conversion happens once at the model boundary).
 

@@ -6,12 +6,13 @@ the rescaled graph Laplacian against a dense (M, C) activation matrix,
 interleaved per the Chebyshev / Monomial / Bernstein recurrences, followed by
 one dense (B*M, Fin*K) x (Fin*K, Fout) matmul.
 
-TPU-native layout: the Laplacian is a padded ELLPACK pair ``(idx, val)`` of
-shape (M, W) — the kNN sphere graph has fixed bounded degree — so the SpMV is
-a fixed-width gather plus a W-term weighted sum, which XLA vectorizes on the
-VPU, and the final contraction is a single large MXU matmul.  A fused Pallas
-kernel for the full Chebyshev recursion lives in ``ops/pallas``; this module
-is the always-correct reference path and the autodiff fallback.
+Layout: the Laplacian is a padded ELLPACK pair ``(idx, val)`` of shape
+(M, W) — the kNN sphere graph has fixed bounded degree — so the SpMV is a
+fixed-width gather plus a W-term weighted sum, and the final contraction is
+a single large matmul.  This is the original design of the reference (K
+sparse-dense matmuls per conv), the plain reference the stencil path
+(:mod:`.stencil`) is tested against, and the path for graphs that have no
+stencil form.
 """
 
 from __future__ import annotations

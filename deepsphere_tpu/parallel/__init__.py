@@ -1,4 +1,3 @@
-from .cface_sharded import face_sharded_cfp_conv
 from .data import data_iterator, global_batch
 from .halo import ShardedEllpack, shard_ellpack, shard_ellpack_cached
 from .mesh import Mesh, NamedSharding, P, batch_sharding, make_mesh, replicated
@@ -18,5 +17,4 @@ __all__ = [
     "ShardedEllpack",
     "shard_ellpack",
     "shard_ellpack_cached",
-    "face_sharded_cfp_conv",
 ]

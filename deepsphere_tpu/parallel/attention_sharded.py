@@ -1,6 +1,6 @@
 """Pixel-sharded edge-sparse attention (shard_map + segment reductions).
 
-TPU-native scale-out of the reference's full-resolution graph transformer
+Scale-out of the reference's full-resolution graph transformer
 (``/root/reference/src/deepsphere/gnn_transformers.py:54-106``; SURVEY.md
 §2.3 "edge-partitioned sparse attention with segment-sum reduction").
 
@@ -16,7 +16,7 @@ Design — destination-partitioned edges:
 * The E-sized per-edge arrays (logits, exp weights, weighted values —
   the memory bottleneck of sparse attention at full resolution, roughly
   ``k``x the node arrays) are sharded S ways.  Only k/v are all_gathered
-  over the pixel axis (one ICI collective per attention layer) because a
+  over the pixel axis (one collective per attention layer) because a
   destination shard's sources reach into neighboring shards; q, the
   per-edge arrays, and the output stay sharded.
 * Per-shard edge counts differ by O(1) on the near-uniform-degree sphere
@@ -135,7 +135,7 @@ def sharded_edge_attention(q, k, v, parts, mask, cfg, stabilized=True):
         check_vma=False,
     )
     def attn(q_l, k_l, v_l, e_l, mk_l):
-        # one ICI collective per layer: sources of a destination shard
+        # one collective per layer: sources of a destination shard
         # reach into neighboring pixel shards
         k_full = jax.lax.all_gather(k_l, pa, axis=2, tiled=True)
         v_full = jax.lax.all_gather(v_l, pa, axis=2, tiled=True)

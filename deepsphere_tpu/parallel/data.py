@@ -1,11 +1,11 @@
 """Input pipeline for sharded training: host-local numpy -> global arrays.
 
 The reference trains from in-memory numpy on one device (quick_start cell
-16; there is no input pipeline to port — SURVEY.md §2.3).  At TPU-pod
+16; there is no input pipeline to port — SURVEY.md §2.3).  At multi-host
 scale the input side changes shape: every host holds only its slice of the
 batch, and the training step consumes ONE logically-global array laid out
 over the mesh.  ``jax.make_array_from_process_local_data`` is the
-TPU-native bridge; these helpers wrap it with the framework's mesh
+bridge; these helpers wrap it with the framework's mesh
 conventions so a user writes
 
     it = data_iterator(mesh, x, y, batch_size=64)

@@ -11,7 +11,7 @@ Strategy (precomputed host-side, executed as one small all_gather per SpMV):
 2.  ``boundary[s]`` = the rows of shard s that any *other* shard references,
     padded to the fleet-wide max ``H``.
 3.  On device, each SpMV does ``buf = all_gather(x[boundary_local])`` —
-    S*H rows ride the ICI — then computes with a remapped ELLPACK whose
+    S*H rows cross the interconnect — then computes with a remapped ELLPACK whose
     column ids point either into the local chunk or into the gathered
     boundary buffer.  No full-activation all-gather ever happens.
 

@@ -1,7 +1,7 @@
 """Device mesh and sharding helpers.
 
 The reference is single-device (SURVEY.md §2.3: no tf.distribute anywhere);
-scale-out here is TPU-native: a ``jax.sharding.Mesh`` with a ``data`` axis
+scale-out here is a ``jax.sharding.Mesh`` with a ``data`` axis
 (batch / data parallelism — gradient psums inserted by the XLA SPMD
 partitioner) and a ``pixel`` axis (sharding the HEALPix pixel dimension M —
 the sequence-parallel analog for spherical maps, see ``halo.py``).

@@ -1,8 +1,8 @@
 """shard_map graph convolutions: DP x pixel-sharded polynomial conv.
 
-The TPU-native scale-out of the hot loop (SURVEY.md §3.2): batch rides the
+The scale-out of the hot loop (SURVEY.md §3.2): batch rides the
 ``data`` mesh axis, the pixel axis M rides the ``pixel`` mesh axis, and every
-Laplacian application performs one boundary-halo all_gather over ICI
+Laplacian application performs one boundary-halo all_gather
 (:mod:`.halo`) instead of materializing the full activation anywhere.
 Gradients flow through ``shard_map`` + collectives natively (all_gather
 transposes to a scatter-reduce in the VJP).
@@ -27,7 +27,7 @@ __all__ = ["ShardConfig", "sharded_poly_conv"]
 
 @dataclass(frozen=True)
 class ShardConfig:
-    """Mesh + axis names for DP x pixel sharding (hashable; lives on Flax
+    """Mesh + axis names for DP x pixel sharding (hashable; lives on
     modules as a static attribute)."""
 
     mesh: Mesh

@@ -10,11 +10,14 @@ no HEALPix precompute) and the call is jittable/shardable like any JAX
 function.
 """
 
-from .export import ExportedModel, export_inference, load_exported, save_exported
+from .export import (ExportedModel, export_inference, load_exported,
+                     read_exported, save_exported, write_exported)
 
 __all__ = [
     "ExportedModel",
     "export_inference",
     "save_exported",
     "load_exported",
+    "write_exported",
+    "read_exported",
 ]

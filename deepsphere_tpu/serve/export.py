@@ -8,13 +8,10 @@ Why this shape:
   extraction is minutes of host precompute), no healpy/pygsp analog, no
   framework import on the serving side.  ``ExportedModel`` runs a blob
   with nothing but jax installed.
-* **Platform stickiness is explicit.**  The conv path is chosen at trace
-  time (``config.pallas_mode()`` — fused Mosaic kernel on TPU, per-step
-  XLA elsewhere), so an artifact lowered on CPU carries the XLA path and
-  an artifact lowered on TPU carries the Mosaic kernel.  Export on the
-  platform you serve on (or pass ``platforms=`` to cross-lower); the
-  artifact records its lowering platforms and jax.export enforces them at
-  call time.
+* **Platform stickiness is explicit.**  An artifact is lowered for the
+  current backend (CPU or CUDA) unless ``platforms=`` names others to
+  cross-lower for; the artifact records its lowering platforms and
+  jax.export enforces them at call time.
 * **Polymorphic batch when the model allows it.**  ``batch_size=None``
   exports with a symbolic leading axis ``b`` so one artifact serves any
   batch size.  Models whose head flattens pixels into a static Dense are
@@ -25,10 +22,12 @@ Why this shape:
 Reference parity anchor: the TF2 reference's deployment unit is
 ``save_weights``/``load_weights`` (HDF5) + re-assembling the model in
 Python (`healpy_networks.py:169-189` semantics); this module is the
-TPU-native replacement for "ship the trained model".
+replacement for "ship the trained model".
 """
 
 from __future__ import annotations
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -60,10 +59,10 @@ def export_inference(model, variables=None, *, batch_size=None, platforms=None):
     :param batch_size: ``None`` exports a symbolic batch axis ``b`` (one
         artifact, any batch size); an int pins the leading axis
     :param platforms: optional sequence of lowering platforms (e.g.
-        ``["tpu"]``, ``["cpu", "tpu"]``) for cross-platform artifacts;
+        ``["cuda"]``, ``["cpu", "cuda"]``) for cross-platform artifacts;
         default = the current backend
-    :return: ``jax.export.Exported`` — call via ``.call(x)``, serialize via
-        ``.serialize()``
+    :return: ``jax.export.Exported`` — call via ``.call(x)``, write via
+        :func:`write_exported`
     """
     from jax import export as jexport
 
@@ -98,17 +97,90 @@ def export_inference(model, variables=None, *, batch_size=None, platforms=None):
     return exported
 
 
+def write_exported(path, exported):
+    """Write a single-input, single-output ``jax.export.Exported`` to
+    ``path``: a zip of its StableHLO bytecode (``module.mlirbc``) and a
+    JSON header (``exported.json``) with the avals, platforms and calling
+    convention.  Needs only jax — not the ``flatbuffers`` package that
+    ``Exported.serialize`` needs.  Returns the byte count."""
+    import json
+    import zipfile
+
+    (ia,), (oa,) = exported.in_avals, exported.out_avals
+    single = jax.tree_util.tree_structure(((0,), {}))
+    if (exported.in_tree != single
+            or exported.out_tree != jax.tree_util.tree_structure(0)
+            or exported.ordered_effects or exported.unordered_effects
+            or exported.disabled_safety_checks
+            or any(s is not None for s in exported.in_shardings_hlo
+                   + exported.out_shardings_hlo
+                   + exported._in_named_shardings
+                   + exported._out_named_shardings)):
+        raise ValueError(
+            "write_exported handles one unsharded array in and out, "
+            "without effects")
+    header = {
+        "fun_name": exported.fun_name,
+        "in_shape": [str(d) for d in ia.shape], "in_dtype": str(ia.dtype),
+        "out_shape": [str(d) for d in oa.shape], "out_dtype": str(oa.dtype),
+        "has_named_shardings": exported._has_named_shardings,
+        "nr_devices": exported.nr_devices,
+        "platforms": list(exported.platforms),
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": exported.uses_global_constants,
+    }
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("exported.json", json.dumps(header))
+        z.writestr("module.mlirbc", exported.mlir_module_serialized)
+    return os.path.getsize(path)
+
+
+def read_exported(path):
+    """Rebuild the ``jax.export.Exported`` written by
+    :func:`write_exported`; calling it needs nothing but jax."""
+    import json
+    import zipfile
+
+    from jax import export as jexport
+    from jax._src import core
+
+    with zipfile.ZipFile(path) as z:
+        h = json.loads(z.read("exported.json"))
+        module = z.read("module.mlirbc")
+    scope = jexport.SymbolicScope()
+
+    def aval(dims, dtype):
+        shape = jexport.symbolic_shape(", ".join(dims), scope=scope)
+        return core.ShapedArray(shape, np.dtype(dtype))
+
+    return jexport.Exported(
+        fun_name=h["fun_name"],
+        in_tree=jax.tree_util.tree_structure(((0,), {})),
+        in_avals=(aval(h["in_shape"], h["in_dtype"]),),
+        out_tree=jax.tree_util.tree_structure(0),
+        out_avals=(aval(h["out_shape"], h["out_dtype"]),),
+        _has_named_shardings=h["has_named_shardings"],
+        _in_named_shardings=(None,), _out_named_shardings=(None,),
+        in_shardings_hlo=(None,), out_shardings_hlo=(None,),
+        nr_devices=h["nr_devices"], platforms=tuple(h["platforms"]),
+        ordered_effects=(), unordered_effects=(), disabled_safety_checks=(),
+        mlir_module_serialized=module,
+        calling_convention_version=h["calling_convention_version"],
+        module_kept_var_idx=tuple(h["module_kept_var_idx"]),
+        uses_global_constants=h["uses_global_constants"],
+        _get_vjp=None,
+    )
+
+
 def save_exported(path, model, variables=None, *, batch_size=None,
                   platforms=None):
     """Export (see :func:`export_inference`) and write the artifact to
-    ``path``.  Returns the byte count."""
+    ``path`` (:func:`write_exported`).  Returns the byte count."""
     exported = export_inference(
         model, variables, batch_size=batch_size, platforms=platforms
     )
-    blob = exported.serialize()
-    with open(path, "wb") as f:
-        f.write(blob)
-    return len(blob)
+    return write_exported(path, exported)
 
 
 class ExportedModel:
@@ -155,8 +227,4 @@ class ExportedModel:
 
 def load_exported(path):
     """Read an artifact written by :func:`save_exported`."""
-    from jax import export as jexport
-
-    with open(path, "rb") as f:
-        blob = f.read()
-    return ExportedModel(jexport.deserialize(blob))
+    return ExportedModel(read_exported(path))

@@ -1,6 +1,6 @@
 """HEALPix 12-face (x, y) layout with cross-face halos.
 
-The TPU-native representation of a HEALPix map.  In NEST ordering every pixel
+The structured representation of a HEALPix map.  In NEST ordering every pixel
 index is the bit-interleave (Morton / z-order) of its (x, y) position within
 one of 12 square base faces, so a NEST map of npix = 12 nside^2 values *is* a
 (12, nside, nside) image up to a fixed permutation.  On this layout the
@@ -10,7 +10,7 @@ one of 12 square base faces, so a NEST map of npix = 12 nside^2 values *is* a
 3x3 stencil with per-pixel weights, and NEST pooling by 4^p
 (``healpy_layers.py:20-84``) becomes 2^p x 2^p spatial pooling.  Graph
 convolution therefore needs **no gather at all** on the hot path — only
-vector shifts (VPU) and matmuls (MXU) — provided each face is padded with a
+shifted multiply-adds and matmuls — provided each face is padded with a
 halo copied from its neighboring faces.
 
 This module computes the static (host-side, cached) index maps:
@@ -56,7 +56,7 @@ def edge_descriptor(face, xs, ys):
     (one row of the healpix_base face-transition tables), so halo strips
     are never true gathers — they are neighbor-face edge bands under an
     affine flip/transpose.  This is what makes a gather-free halo refresh
-    possible on TPU.
+    possible.
 
     :param xs: -1 (x < 0 side), 0 (x interior), +1 (x >= nside side)
     :param ys: same for y; (0, 0) is invalid

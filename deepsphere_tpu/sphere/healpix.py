@@ -7,7 +7,7 @@ resolution changes (``ud_grade``).  It replaces the external ``healpy`` C++
 dependency of the reference implementation (see
 ``/root/reference/src/deepsphere/utils.py:3`` and
 ``/root/reference/src/deepsphere/healpy_networks.py:1``) with host-side numpy
-precompute; nothing here runs inside the TPU compute path.
+precompute; nothing here runs inside the device compute path.
 
 All functions accept scalars or numpy arrays and are fully vectorized.  The
 conversion hub is the (face, x, y) coordinate system: every ordering converts

@@ -1,6 +1,6 @@
 """Partial-sky pixel index bookkeeping.
 
-TPU-native re-implementation of the index utilities the reference model
+Re-implementation of the index utilities the reference model
 assembler relies on:
 
 * ``extend_indices`` — parity with

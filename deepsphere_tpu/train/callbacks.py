@@ -4,7 +4,7 @@ The reference trains with bare Keras ``fit`` (quick_start cell 16) whose
 users lean on ``EarlyStopping`` / ``ModelCheckpoint``; these are the
 equivalents for the functional JAX trainer.  Only the epoch-granular
 hooks exist — per-batch hooks would force a host sync inside the hot
-loop, which is exactly what a TPU training loop must not do.
+loop, which is exactly what an accelerator training loop must not do.
 """
 
 from __future__ import annotations
@@ -105,7 +105,8 @@ class ModelCheckpoint(Callback):
     """Write model weights after each epoch (optionally best-only).
 
     ``filepath`` may contain ``{epoch}`` / metric fields like Keras
-    (``"w-{epoch:02d}-{val_loss:.3f}.msgpack"``).
+    (``"w-{epoch:02d}-{val_loss:.3f}.npz"``); each file is the ``.npz``
+    that ``save_weights`` writes.
     """
 
     def __init__(self, filepath, monitor="val_loss", save_best_only=False,

@@ -10,11 +10,11 @@ second -> ``chebyshev_1``, ...), nested sublayers stored by attribute name
 (``bn``, ``layer1``, ``filter``) or under a ``layers`` list container, and
 each layer's variables as ``vars/0..n`` in Keras build order.
 
-This module maps that tree onto our flax variable tree so a model trained
+This module maps that tree onto our variable tree so a model trained
 with the TF2 reference can be served/fine-tuned here directly:
 
 ==============================  ============================================
-reference layer (H5 group)      our flax layer / param subtree
+reference layer (H5 group)      our layer / param subtree
 ==============================  ============================================
 ``chebyshev``                   ``ChebyshevConv``: ``vars/0`` -> ``kernel``
                                 (Fin*K, Fout), ``vars/1`` -> ``bias``
@@ -58,7 +58,7 @@ import numpy as np
 __all__ = ["import_keras_h5"]
 
 
-# our flax layer class name -> the H5 top-level base group name (the
+# our layer class name -> the H5 top-level base group name (the
 # snake_case of the REFERENCE class it corresponds to)
 _BASE_NAME = {
     "ChebyshevConv": "chebyshev",

@@ -1,9 +1,9 @@
 """Jitted training loop over a HealpyGCNN (or any SequentialModel).
 
-TPU-native equivalent of the two reference training idioms (SURVEY §3.3):
+Equivalent of the two reference training idioms (SURVEY §3.3):
 Keras ``compile``/``fit`` (``quick_start.ipynb`` cells 15-16) and the custom
 ``tf.function`` GradientTape loop (``advanced_tutorial.ipynb`` cell 28) —
-here a single ``jax.jit``-compiled optax train step with flax mutable batch
+here a single ``jax.jit``-compiled optax train step with mutable batch
 stats, optionally data-parallel over a device mesh (gradients ride XLA psum
 inserted by the sharding partitioner).
 """
@@ -37,7 +37,8 @@ class Trainer:
     """Compiles and drives the train/eval steps for a model wrapper.
 
     :param model: a :class:`~deepsphere_tpu.models.HealpyGCNN` (anything with
-        ``.module`` being a flax module taking ``(x, training=...)``)
+        ``.module`` being a :class:`~deepsphere_tpu.nn.core.Module` taking
+        ``(x, training=...)``)
     :param optimizer: an optax GradientTransformation (or learning-rate float
         -> Adam, mirroring the notebooks' default)
     :param loss: loss name or callable ``loss(y_true, y_pred)``

@@ -1,6 +1,6 @@
 """Visualization: map projections and filter plots.
 
-TPU-native replacement for the reference visualization layer
+Replacement for the reference visualization layer
 (``/root/reference/src/deepsphere/plot.py`` and the plotting methods of
 ``healpy_networks.py:190-385``) with no healpy/pygsp dependency — the
 projections are computed from this package's own HEALPix geometry.

@@ -1,21 +1,20 @@
 """Multi-chip training: DP x pixel sharding over a device mesh.
 
 The reference is single-device (SURVEY.md §2.3 — no tf.distribute); this
-is the TPU-native scale-out workflow end to end:
+is the scale-out workflow end to end:
 
 1. a ``Mesh`` with a ``data`` axis (batch parallelism) and a ``pixel``
    axis (the HEALPix pixel dimension sharded over chips — the
    sequence-parallel analog for spherical maps),
-2. ``HealpyGCNN(shard_cfg=...)``: stencil-capable convs run the
-   face-sharded FUSED kernel (one edge-band all_gather is the only
-   activation communication; gradients psum over ``data`` via the XLA
-   SPMD partitioner),
+2. ``HealpyGCNN(shard_cfg=...)``: convs run the halo-sharded ELLPACK
+   SpMV (one boundary-row all_gather per Laplacian application;
+   gradients psum over ``data`` via the XLA SPMD partitioner),
 3. ``data_iterator``: host-local numpy -> mesh-sharded global batches,
 4. a jitted functional train step (params replicated, batch sharded).
 
 Runs anywhere: on CPU set ``XLA_FLAGS=--xla_force_host_platform_device_count=8``
-to simulate an 8-chip mesh (that is what the test harness does); on a TPU
-pod slice the same code rides ICI.
+to simulate an 8-device mesh (that is what the test harness does); on a
+multi-GPU host the same code shards over the GPUs.
 
 Run:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/multichip_train.py   [NSIDE=8 STEPS=6 PIXEL=4]
@@ -115,4 +114,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from deepsphere_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     main()

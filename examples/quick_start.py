@@ -75,4 +75,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from deepsphere_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -4,9 +4,9 @@ The reference's deployment story is HDF5 weights plus re-building the
 model in Python with the full framework (healpy, pygsp, TF) installed.
 Here the trained model is lowered once to a **self-contained StableHLO
 artifact** (weights + graph tables baked in, polymorphic batch axis) and
-the "serving side" below replays it with nothing but jax — no graph
-rebuild, no deepsphere_tpu import needed at all (we use the raw
-``jax.export`` API there to prove it).
+the "serving side" below replays it as a plain ``jax.export.Exported``
+(rebuilt by ``serve.read_exported`` from the StableHLO bytecode and a
+JSON header) — no graph rebuild, no model code.
 
 Run:  python examples/serving.py   [NSIDE=8 for a fast run]
 """
@@ -54,12 +54,13 @@ def train_and_export():
 
 
 def serve(x, labels):
-    """The consumer: ONLY jax — no deepsphere_tpu, no graph precompute."""
+    """The consumer: a plain jax.export.Exported — no model, no graph
+    precompute."""
     import jax.numpy as jnp
-    from jax import export as jexport
 
-    with open(ARTIFACT, "rb") as f:
-        fn = jexport.deserialize(f.read())
+    from deepsphere_tpu.serve import read_exported
+
+    fn = read_exported(ARTIFACT)
     print(f"loaded artifact: input {fn.in_avals[0].shape}, "
           f"platforms {fn.platforms}")
 
@@ -70,5 +71,8 @@ def serve(x, labels):
 
 
 if __name__ == "__main__":
+    from deepsphere_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     data = train_and_export()
     serve(*data)

@@ -146,3 +146,83 @@ def test_harmonic_width_native_and_numpy_agree():
     res = native.grid_laplacian(8, -0.5166)
     g = build_sphere_graph(8, k=8, method="grid")
     assert res["kernel_width"] == pytest.approx(g.kernel_width, rel=1e-12)
+
+
+def _same_up_to_ties(i_a, d_a, i_b, d_b):
+    """Neighbor lists agree: identical sorted distances per row, and the
+    same neighbor set on every row whose last distance is not tied with a
+    dropped candidate (equidistant k-th neighbors may be chosen either
+    way)."""
+    np.testing.assert_allclose(np.sort(d_a, 1), np.sort(d_b, 1),
+                               rtol=0, atol=1e-12)
+    sa, sb = np.sort(i_a, 1), np.sort(i_b, 1)
+    differ = (sa != sb).any(axis=1)
+    # a differing row must hold a tie: a neighbor of one list at the last
+    # distance that the other list dropped
+    last = np.max(d_a, axis=1)
+    for r in np.flatnonzero(differ):
+        only = np.setdiff1d(sa[r], sb[r])
+        assert np.allclose(d_a[r][np.isin(i_a[r], only)], last[r],
+                           rtol=0, atol=1e-12), r
+    return differ.sum()
+
+
+@pytest.mark.parametrize("nside,k", [(4, 8), (8, 20), (8, 40)])
+def test_knn_neighbors_match_sklearn(nside, k):
+    """The kNN graph (scipy cKDTree) selects the neighbors sklearn's
+    NearestNeighbors selected, up to the choice among equidistant k-th
+    neighbors, and builds the same adjacency on every untied row."""
+    neighbors = pytest.importorskip("sklearn.neighbors")
+    from scipy.spatial import cKDTree
+
+    from deepsphere_tpu.graph.laplacian import _knn_adjacency
+
+    npix = hp.nside2npix(nside)
+    coords = hp.pix2vec(nside, np.arange(npix), nest=True)
+    d_s, i_s = neighbors.NearestNeighbors(n_neighbors=k + 1).fit(
+        coords).kneighbors(coords)
+    d_c, i_c = cKDTree(coords).query(coords, k=k + 1)
+    assert (i_c[:, 0] == np.arange(npix)).all()  # self first, then dropped
+    n_tied = _same_up_to_ties(i_c[:, 1:], d_c[:, 1:], i_s[:, 1:], d_s[:, 1:])
+    assert n_tied < 0.05 * npix
+
+    W, width = _knn_adjacency(coords, k)
+    assert width == pytest.approx(float(np.mean(d_s[:, 1:])), rel=1e-12)
+    rows = np.flatnonzero(
+        (np.sort(i_c[:, 1:], 1) == np.sort(i_s[:, 1:], 1)).all(axis=1))
+    w = np.exp(-(d_s[:, 1:] ** 2) / (2.0 * width ** 2))
+    D = sparse.csr_matrix((w.reshape(-1), (np.repeat(np.arange(npix), k),
+                                           i_s[:, 1:].reshape(-1))),
+                          shape=(npix, npix))
+    W_ref = (D + D.T) / 2.0
+    tied = np.setdiff1d(np.arange(npix), rows)
+    # rows whose W entries involve a tied row's choice in either graph
+    touched = np.unique(np.concatenate([tied, i_s[tied].ravel(),
+                                        i_c[tied].ravel()]))
+    untied = np.setdiff1d(np.arange(npix), touched)
+    assert untied.size > 0.5 * npix
+    diff = (W - W_ref).tocsr()[untied]
+    assert abs(diff).max() < 1e-12
+
+
+@pytest.mark.parametrize("nside,sigma_arcmin", [(8, 600.0), (16, 240.0)])
+def test_smoothing_neighbors_match_balltree(nside, sigma_arcmin):
+    """The smoothing kernel's great-circle neighbors (cKDTree on unit
+    vectors) equal sklearn's haversine BallTree query: same support size,
+    same angular distances, same neighbor sets up to equidistant ties."""
+    neighbors = pytest.importorskip("sklearn.neighbors")
+    from deepsphere_tpu.nn.smoothing import _great_circle_neighbors
+
+    npix = hp.nside2npix(nside)
+    radius = 3 * np.radians(sigma_arcmin / 60.0)
+    lon, lat = hp.pix2ang(nside, np.arange(npix), nest=True, lonlat=True)
+    theta = np.stack([np.radians(lat), np.radians(lon)], axis=1)
+    tree = neighbors.BallTree(theta, metric="haversine")
+    kq = int(np.max(tree.query_radius(theta, r=radius, count_only=True)))
+    d_b, i_b = tree.query(theta, k=kq, sort_results=True)
+
+    d_c, i_c = _great_circle_neighbors(nside, np.arange(npix), True, radius)
+    assert i_c.shape == i_b.shape
+    np.testing.assert_allclose(d_c, d_b, rtol=0, atol=1e-9)
+    d_c = d_b  # identical up to the formula's rounding
+    assert _same_up_to_ties(i_c, d_c, i_b, d_b) < 0.1 * npix

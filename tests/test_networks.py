@@ -108,7 +108,7 @@ def test_checkpoint_roundtrip_different_seed(rng, tmp_path):
     y2 = np.asarray(m2(jnp.asarray(x)))
     assert not np.allclose(y1, y2)  # different init -> different output
 
-    path = str(tmp_path / "weights.msgpack")
+    path = str(tmp_path / "weights.npz")
     m1.save_weights(path)
     m2.load_weights(path)
     y2b = np.asarray(m2(jnp.asarray(x)))
@@ -426,7 +426,7 @@ def test_fit_callbacks_early_stopping_and_checkpoint(rng, tmp_path):
     epochs_seen = []
     es = EarlyStopping(monitor="val_loss", patience=0,
                        restore_best_weights=True)
-    ck = ModelCheckpoint(str(tmp_path / "w-{epoch:02d}.msgpack"),
+    ck = ModelCheckpoint(str(tmp_path / "w-{epoch:02d}.npz"),
                          monitor="val_loss", save_best_only=True)
     lam = LambdaCallback(on_epoch_end=lambda ep, logs: epochs_seen.append(ep))
     h = model.fit(x[:24], y[:24], batch_size=8, epochs=30,
@@ -442,7 +442,7 @@ def test_fit_callbacks_early_stopping_and_checkpoint(rng, tmp_path):
     np.testing.assert_allclose(val["loss"], best, rtol=1e-5)
 
     # best-only checkpoints: one file per improvement, none after
-    files = sorted(p.name for p in tmp_path.glob("w-*.msgpack"))
+    files = sorted(p.name for p in tmp_path.glob("w-*.npz"))
     improvements = 1 + sum(
         1 for a, b in zip(h["val_loss"], h["val_loss"][1:]) if b < a
     )

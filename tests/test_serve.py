@@ -2,7 +2,7 @@
 
 The reference's deployment unit is HDF5 weights + re-assembling the model
 in Python (reference ``healpy_networks.py:169-189``,
-``tests/test_healpy_networks.py:133-152``); the TPU-native replacement is
+``tests/test_healpy_networks.py:133-152``); the replacement here is
 ``jax.export`` artifacts with weights and graph tables baked in
 (``deepsphere_tpu/serve/export.py``).  These tests pin:
 
@@ -71,26 +71,32 @@ def test_fixed_batch_artifact(tiny_model, tmp_path):
     np.testing.assert_allclose(np.asarray(em(x)), y, atol=1e-5)
 
 
-def test_cross_platform_lowering(tiny_model):
+def test_cross_platform_lowering(tiny_model, tmp_path):
     model, x, y = tiny_model
-    exported = model.export_inference(batch_size=None, platforms=["cpu", "tpu"])
-    assert set(exported.platforms) == {"cpu", "tpu"}
-    em = serve.ExportedModel(
-        __import__("jax").export.deserialize(exported.serialize())
-    )
+    exported = model.export_inference(batch_size=None, platforms=["cpu", "cuda"])
+    assert set(exported.platforms) == {"cpu", "cuda"}
+    path = tmp_path / "model_xp.dsx"
+    serve.write_exported(path, exported)
+    em = serve.load_exported(path)
+    assert set(em.platforms) == {"cpu", "cuda"}
     np.testing.assert_allclose(np.asarray(em(x)), y, atol=1e-5)
 
 
 def test_artifact_is_framework_free(tiny_model, tmp_path):
-    """The blob must replay without graph_tables/precompute: deserialize
-    through raw jax.export only (no deepsphere_tpu objects)."""
+    """The blob must replay without graph_tables/precompute: the file holds
+    only StableHLO bytecode and a JSON header, and what it rebuilds is a
+    plain jax.export.Exported (no deepsphere_tpu objects) that jax runs."""
+    import zipfile
+
+    from jax import export as jexport
+
     model, x, y = tiny_model
     path = tmp_path / "model.dsx"
     model.save_exported(path, batch_size=None)
-    from jax import export as jexport
-
-    with open(path, "rb") as f:
-        raw = jexport.deserialize(f.read())
+    with zipfile.ZipFile(path) as z:
+        assert sorted(z.namelist()) == ["exported.json", "module.mlirbc"]
+    raw = serve.read_exported(path)
+    assert type(raw) is jexport.Exported
     out = raw.call(jnp.asarray(x))
     np.testing.assert_allclose(np.asarray(out), y, atol=1e-5)
 

@@ -143,173 +143,83 @@ def test_dp_train_step_runs():
     assert np.isfinite(logs["loss"])
 
 
-@pytest.mark.slow
-def test_model_cface_sharded_matches_single_device(rng):
-    """A full model assembled with a face-compatible ShardConfig routes its
-    convs through the face-sharded FUSED conv (cface plan) and matches the
-    unsharded model exactly: forward, train-mode BN stats, and parameter
+def test_model_sharded_matches_single_device(rng):
+    """A full model assembled with a ShardConfig routes every conv through
+    the halo-sharded ELLPACK path (NEST order, no cface plan) and matches
+    the unsharded model: forward, train-mode BN stats, and parameter
     gradients."""
     import deepsphere_tpu as ds
-    import deepsphere_tpu.config as cfg_mod
     from deepsphere_tpu.nn import healpy_layers as hp_nn
 
-    cfg_mod.set_use_pallas("on")  # interpret mode on CPU
-    try:
-        nside, B = 8, 2
-        npix = ds.sphere.healpix.nside2npix(nside)
+    nside, B = 8, 2
+    npix = ds.sphere.healpix.nside2npix(nside)
 
-        def make_layers():
-            return [
-                hp_nn.HealpyChebyshev(K=3, Fout=3, activation="relu",
-                                      use_bn=True),
-                hp_nn.HealpyPool(p=1),
-                hp_nn.Flatten(),
-                hp_nn.Dense(2),
-            ]
+    def make_layers():
+        return [
+            hp_nn.HealpyChebyshev(K=3, Fout=3, activation="relu",
+                                  use_bn=True),
+            hp_nn.HealpyPool(p=1),
+            hp_nn.Flatten(),
+            hp_nn.Dense(2),
+        ]
 
-        mesh = make_mesh(shape=(2, 2), axis_names=("data", "pixel"),
-                         devices=jax.devices()[:4])
-        cfg = ShardConfig(mesh=mesh)
-        m_plain = ds.HealpyGCNN(nside, np.arange(npix), make_layers())
-        m_shard = ds.HealpyGCNN(nside, np.arange(npix), make_layers(),
-                                shard_cfg=cfg)
+    mesh = make_mesh(shape=(2, 2), axis_names=("data", "pixel"),
+                     devices=jax.devices()[:4])
+    cfg = ShardConfig(mesh=mesh)
+    m_plain = ds.HealpyGCNN(nside, np.arange(npix), make_layers())
+    m_shard = ds.HealpyGCNN(nside, np.arange(npix), make_layers(),
+                            shard_cfg=cfg)
 
-        # the plan must actually pick the fused cface path for the sharded
-        # model (the whole point: no gather-path fallback)
-        assert m_shard.layers_use[0].layout == "cface"
-        assert m_shard.layers_use[0].shard_cfg is cfg
+    assert m_plain.layers_use[0].layout == "cface"
+    assert m_shard.layers_use[0].layout == "nest"
+    assert m_shard.layers_use[0].shard_cfg is cfg
 
-        x = jnp.asarray(rng.normal(size=(B, npix, 1)), jnp.float32)
-        v_plain = m_plain.init(0, x)
-        v_shard = m_shard.init(0, x)
-        jax.tree_util.tree_map(
-            lambda a, b: np.testing.assert_array_equal(np.asarray(a), np.asarray(b)),
-            v_plain["params"], v_shard["params"],
-        )
+    x = jnp.asarray(rng.normal(size=(B, npix, 1)), jnp.float32)
+    v_plain = m_plain.init(0, x)
+    v_shard = m_shard.init(0, x)
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_array_equal(np.asarray(a), np.asarray(b)),
+        v_plain["params"], v_shard["params"],
+    )
 
-        y_plain = np.asarray(m_plain.apply(v_plain, x))
-        y_shard = np.asarray(m_shard.apply(v_shard, x))
-        np.testing.assert_allclose(y_shard, y_plain, atol=1e-4)
+    y_plain = np.asarray(m_plain.apply(v_plain, x))
+    y_shard = np.asarray(m_shard.apply(v_shard, x))
+    np.testing.assert_allclose(y_shard, y_plain, atol=1e-4)
 
-        # train mode: outputs + updated batch stats
-        yp, up_p = jax.jit(
-            lambda v, xx: m_plain.module.apply(v, xx, training=True,
-                                               mutable=["batch_stats"])
-        )(v_plain, x)
-        ys, up_s = jax.jit(
-            lambda v, xx: m_shard.module.apply(v, xx, training=True,
-                                               mutable=["batch_stats"])
-        )(v_shard, x)
-        np.testing.assert_allclose(np.asarray(ys), np.asarray(yp), atol=1e-4)
-        jax.tree_util.tree_map(
-            lambda a, b: np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), atol=1e-5
-            ),
-            up_p["batch_stats"], up_s["batch_stats"],
-        )
+    # train mode: outputs + updated batch stats
+    yp, up_p = jax.jit(
+        lambda v, xx: m_plain.module.apply(v, xx, training=True,
+                                           mutable=["batch_stats"])
+    )(v_plain, x)
+    ys, up_s = jax.jit(
+        lambda v, xx: m_shard.module.apply(v, xx, training=True,
+                                           mutable=["batch_stats"])
+    )(v_shard, x)
+    np.testing.assert_allclose(np.asarray(ys), np.asarray(yp), atol=1e-4)
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), atol=1e-5
+        ),
+        up_p["batch_stats"], up_s["batch_stats"],
+    )
 
-        # parameter gradients through the sharded fused conv
-        def loss(model, variables, params):
-            out = model.module.apply({**variables, "params": params}, x,
-                                     training=False)
-            return jnp.sum(jnp.sin(out))
+    def loss(model, variables, params):
+        out = model.module.apply({**variables, "params": params}, x,
+                                 training=False)
+        return jnp.sum(jnp.sin(out))
 
-        g_plain = jax.jit(jax.grad(lambda p: loss(m_plain, v_plain, p)))(
-            v_plain["params"]
-        )
-        g_shard = jax.jit(jax.grad(lambda p: loss(m_shard, v_shard, p)))(
-            v_shard["params"]
-        )
-        jax.tree_util.tree_map(
-            lambda a, b: np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
-            ),
-            g_plain, g_shard,
-        )
-    finally:
-        cfg_mod.set_use_pallas("auto")
-
-
-@pytest.mark.slow
-def test_face_sharded_cfp_conv_matches_unsharded(rng):
-    """The face-sharded fused conv (edge-band all_gather + local kernel)
-    matches the single-device conv exactly — forward and both gradients —
-    on a (data=2, face=4) mesh, corrections active (K=3 -> 2-step halo)."""
-    from functools import partial
-
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    import deepsphere_tpu.config as cfg
-    from deepsphere_tpu.ops import pallas_stencil as ps
-    from deepsphere_tpu.ops.stencil import stencil_tables
-    from deepsphere_tpu.parallel.cface_sharded import face_sharded_cfp_conv
-
-    cfg.set_use_pallas("on")  # interpret mode on CPU
-    try:
-        nside, K, Bg, Fin, Fout = 16, 3, 4, 2, 3
-        g = build_sphere_graph(nside, k=8, method="grid")
-        st = g.face_stencil(0.75, n_steps=K - 1)
-        assert st is not None and st.corr_src.shape[0] > 0
-        tables = {k: jnp.asarray(v) for k, v in stencil_tables(st).items()}
-        h = K - 1
-        _, P_l = ps.cfp_geometry(nside, h)
-        C = Bg * Fin
-        xc = jnp.asarray(
-            rng.normal(size=(C, 12, nside, P_l)), jnp.float32
-        )
-        kern = jnp.asarray(rng.normal(size=(Fin * K, Fout)), jnp.float32)
-
-        y_ref = ps.fused_stencil_conv_cfp(
-            st, tables, xc, kern, K, "cheby", Bg, interpret=True
-        )
-
-        mesh = make_mesh(shape=(2, 4), axis_names=("data", "face"))
-        tspecs = {
-            k: P(None, "face", None, None) if k == "weights" else P()
-            for k in tables
-        }
-        B_loc = Bg // 2
-
-        @partial(
-            shard_map, mesh=mesh,
-            in_specs=(tspecs, P("data", "face", None, None), P()),
-            out_specs=P("data", "face", None, None),
-            check_vma=False,
-        )
-        def sharded(tables, xc_loc, kern):
-            return face_sharded_cfp_conv(
-                st, tables, xc_loc, kern, K, "cheby", B_loc,
-                axis_name="face", interpret=True,
-            )
-
-        y = sharded(tables, xc, kern)
-        np.testing.assert_allclose(
-            np.asarray(y), np.asarray(y_ref), atol=1e-4
-        )
-
-        # gradients (interior-masked loss, as the layout contract demands)
-        def loss_ref(xc, kern):
-            y = ps.fused_stencil_conv_cfp(
-                st, tables, xc, kern, K, "cheby", Bg, interpret=True
-            )
-            return jnp.sum(jnp.sin(y[:, :, :, h : h + nside]))
-
-        def loss_sh(xc, kern):
-            y = sharded(tables, xc, kern)
-            return jnp.sum(jnp.sin(y[:, :, :, h : h + nside]))
-
-        gx_r, gk_r = jax.grad(loss_ref, (0, 1))(xc, kern)
-        gx, gk = jax.grad(loss_sh, (0, 1))(xc, kern)
-        np.testing.assert_allclose(
-            np.asarray(gk), np.asarray(gk_r), rtol=2e-5, atol=1e-4
-        )
-        ii = np.s_[:, :, :, h : h + nside]
-        np.testing.assert_allclose(
-            np.asarray(gx[ii]), np.asarray(gx_r[ii]), atol=1e-4
-        )
-    finally:
-        cfg.set_use_pallas("auto")
+    g_plain = jax.jit(jax.grad(lambda p: loss(m_plain, v_plain, p)))(
+        v_plain["params"]
+    )
+    g_shard = jax.jit(jax.grad(lambda p: loss(m_shard, v_shard, p)))(
+        v_shard["params"]
+    )
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
+        ),
+        g_plain, g_shard,
+    )
 
 
 def test_data_iterator_global_batches(rng):
@@ -399,43 +309,36 @@ def test_data_iterator_feeds_sharded_train_step(rng):
     assert losses[-1] < losses[0]
 
 
-@pytest.mark.slow  # two cface-sharded convs -> minutes of SPMD interpret compile
 def test_sharded_autoencoder_matches_single(rng):
     """Encoder/decoder (pseudo-conv down + transpose up) under DP x pixel
     sharding must match the unsharded model — the upsampling path is the
     autoencoder workload's backbone (reference generative_models.ipynb)."""
     import deepsphere_tpu as ds
-    from deepsphere_tpu import config as cfg_mod
     from deepsphere_tpu.nn import healpy_layers as hp_nn
     from deepsphere_tpu.sphere import healpix as hp
 
-    cfg_mod.set_use_pallas("on")
-    try:
-        mesh = make_mesh(shape=(2, 4), axis_names=("data", "pixel"))
-        sc = ShardConfig(mesh=mesh)
-        nside = 8
-        npix = hp.nside2npix(nside)
+    mesh = make_mesh(shape=(2, 4), axis_names=("data", "pixel"))
+    sc = ShardConfig(mesh=mesh)
+    nside = 8
+    npix = hp.nside2npix(nside)
 
-        def build(shard):
-            return ds.HealpyGCNN(
-                nside=nside, indices=np.arange(npix), layers=[
-                    hp_nn.HealpyPseudoConv(p=1, Fout=4),
-                    hp_nn.HealpyChebyshev(K=3, Fout=4, activation="relu"),
-                    hp_nn.HealpyPseudoConv_Transpose(p=1, Fout=2),
-                    hp_nn.HealpyChebyshev(K=3, Fout=1),
-                ], shard_cfg=shard,
-            )
+    def build(shard):
+        return ds.HealpyGCNN(
+            nside=nside, indices=np.arange(npix), layers=[
+                hp_nn.HealpyPseudoConv(p=1, Fout=4),
+                hp_nn.HealpyChebyshev(K=3, Fout=4, activation="relu"),
+                hp_nn.HealpyPseudoConv_Transpose(p=1, Fout=2),
+                hp_nn.HealpyChebyshev(K=3, Fout=1),
+            ], shard_cfg=shard,
+        )
 
-        x = jnp.asarray(rng.normal(size=(4, npix, 1)), jnp.float32)
-        m1, m2 = build(None), build(sc)
-        v1 = m1.init(0, x)
-        v2 = {**m2.init(0, x), "params": v1["params"]}
-        y1 = m1.module.apply(v1, x, training=False)
-        y2 = m2.module.apply(v2, x, training=False)
-        np.testing.assert_allclose(np.asarray(y1), np.asarray(y2),
-                                   atol=2e-6)
-    finally:
-        cfg_mod.set_use_pallas("auto")
+    x = jnp.asarray(rng.normal(size=(4, npix, 1)), jnp.float32)
+    m1, m2 = build(None), build(sc)
+    v1 = m1.init(0, x)
+    v2 = {**m2.init(0, x), "params": v1["params"]}
+    y1 = m1.module.apply(v1, x, training=False)
+    y2 = m2.module.apply(v2, x, training=False)
+    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2), atol=2e-6)
 
 
 def test_transformer_model_under_mesh(rng):

@@ -1,6 +1,6 @@
 """Face layout + stencil graph conv: parity against the ELLPACK gather path.
 
-The stencil path is the TPU fast path; its ground truth is the gather path,
+The stencil path is the structured fast path; its ground truth is the gather path,
 whose own ground truth is scipy (tests/test_ops.py) — matching the reference
 test strategy of layering golden checks (SURVEY.md §4).
 """
@@ -384,7 +384,7 @@ def test_face_mode_checkpoint_roundtrip(tmp_path, rng):
     x = rng.normal(size=(4, npix, 1)).astype(np.float32)
     m1 = mk(); m1.build((4, npix, 1), rng=0)
     m2 = mk(); m2.build((4, npix, 1), rng=7)
-    path = str(tmp_path / "w.msgpack")
+    path = str(tmp_path / "w.npz")
     m1.save_weights(path)
     m2.load_weights(path)
     np.testing.assert_allclose(
@@ -392,36 +392,34 @@ def test_face_mode_checkpoint_roundtrip(tmp_path, rng):
     )
 
 
-def test_edge_strips_match_gather_tables(rng):
-    """Structured edge copies == the halo_map gather strips (all regions,
-    both a deep and a depth-1 halo)."""
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("nside,K,C", [(8, 2, 3), (8, 5, 3), (16, 2, 1),
+                                       (16, 5, 8), (32, 3, 4)])
+def test_edge_strips_match_gather_tables(rng, nside, K, C):
+    """Structured edge copies == the halo_map gather strips (all regions)
+    at the halo depth h = K - 1 of a K-term conv."""
     from deepsphere_tpu.ops.stencil import edge_strips
 
-    n = 8
-    C = 3
+    n, h = nside, K - 1
     npix = 12 * n * n
     x2d = rng.normal(size=(npix, C)).astype(np.float32)
     x3 = jnp.asarray(x2d.T.reshape(C, 12, n, n))
     flat = x2d  # face-flat (M, C)
 
-    for h in (1, 4):
-        g = build_sphere_graph(n, k=8, method="grid")
-        st = g.face_stencil(0.75, n_steps=h)
-        tables = stencil_tables(st)
+    g = build_sphere_graph(n, k=8, method="grid")
+    st = g.face_stencil(0.75, n_steps=h)
+    tables = stencil_tables(st)
 
-        def gather(name):
-            src = tables[f"{name}_src"]
-            mask = tables[f"{name}_mask"]
-            out = flat[src.reshape(-1)].reshape(src.shape + (C,)) * mask[..., None]
-            return np.transpose(out, (3, 0, 1, 2))  # (C, 12, rows, cols)
+    def gather(name):
+        src = tables[f"{name}_src"]
+        mask = tables[f"{name}_mask"]
+        out = flat[src.reshape(-1)].reshape(src.shape + (C,)) * mask[..., None]
+        return np.transpose(out, (3, 0, 1, 2))  # (C, 12, rows, cols)
 
-        west, east, south, north = edge_strips(n, h, x3)
-        np.testing.assert_allclose(np.asarray(west), gather("west"), atol=0)
-        np.testing.assert_allclose(np.asarray(east), gather("east"), atol=0)
-        np.testing.assert_allclose(np.asarray(south), gather("south"), atol=0)
-        np.testing.assert_allclose(np.asarray(north), gather("north"), atol=0)
+    west, east, south, north = edge_strips(n, h, x3)
+    np.testing.assert_array_equal(np.asarray(west), gather("west"))
+    np.testing.assert_array_equal(np.asarray(east), gather("east"))
+    np.testing.assert_array_equal(np.asarray(south), gather("south"))
+    np.testing.assert_array_equal(np.asarray(north), gather("north"))
 
 
 class TestRingStencil:
@@ -478,139 +476,31 @@ class TestRingStencil:
         y_el = np.asarray(conv_el.apply(v_el, x))
         np.testing.assert_allclose(y_st, y_el, atol=1e-4)
 
-    def test_deep_stencil_pads_unaligned_halos_to_sublane_tile(
-        self, monkeypatch
-    ):
-        """Round-4 un-gating: unaligned halo depths beyond one sublane tile
-        (h > 8, h % 8 != 0) hard-fault the real chip (radius-1 K=10 h=9 and
-        radius-3 K=5 h=12 both did — PERFORMANCE.md round-3 finding), so
-        :meth:`deep_stencil` now rounds such depths UP to the tile: the
-        extra rows are valid-but-unused halo margin, the recursion stays
-        exact, and the compiled DMA geometry lands in the Mosaic-verified
-        8-aligned class.  The fused gate accepts the padded stencils and
-        declines only hand-built unaligned ones."""
-        import deepsphere_tpu.config as cfg
-        from deepsphere_tpu.ops import pallas_stencil as ps
+    def test_deep_stencil_halo_is_radius_times_steps(self):
+        """deep_stencil builds exactly the halo a K-term conv consumes,
+        h = radius * (K - 1), and the cface plan accepts a stencil whose
+        halo covers the conv — never one that falls short."""
+        from deepsphere_tpu.ops.stencil import cfp_structural_available
 
         g3 = build_sphere_graph(32, k=40, method="grid")
-        st3 = g3.deep_stencil(0.75, 5)  # radius 3: needs 12 -> padded 16
-        assert st3 is not None and st3.radius == 3 and st3.n_steps == 16
+        st3 = g3.deep_stencil(0.75, 5)
+        assert st3 is not None and st3.radius == 3 and st3.n_steps == 12
         g2 = build_sphere_graph(32, k=20, method="grid")
-        st2 = g2.deep_stencil(0.75, 5)  # radius 2, h = 8 (no padding)
+        st2 = g2.deep_stencil(0.75, 5)
         assert st2 is not None and st2.radius == 2 and st2.n_steps == 8
         g1 = build_sphere_graph(32, k=8, method="grid")
-        st10 = g1.deep_stencil(0.75, 10)  # radius 1: needs 9 -> padded 16
-        assert st10 is not None and st10.n_steps == 16
-        st9 = g1.deep_stencil(0.75, 9)  # radius 1, h = 8 (no padding)
+        st10 = g1.deep_stencil(0.75, 10)
+        assert st10 is not None and st10.n_steps == 9
+        st9 = g1.deep_stencil(0.75, 9)
         assert st9 is not None and st9.n_steps == 8
 
-        monkeypatch.setattr(cfg, "pallas_mode", lambda: "compile")
-        # radius >= 3 declines compiled fused execution on PERFORMANCE
-        # grounds (k=40@128 measured 30.92 ms fused vs 11.43 ms on the
-        # per-step XLA path — see fused_available); the padded geometry
-        # itself is correct on chip, so the override re-enables it
-        assert not ps.fused_available(st3, "cheby", 5)
-        monkeypatch.setenv("DS_ALLOW_FUSED_R3", "1")
-        assert ps.fused_available(st3, "cheby", 5)
-        monkeypatch.delenv("DS_ALLOW_FUSED_R3")
-        assert ps.fused_available(st2, "cheby", 5)
-        assert ps.fused_available(st10, "cheby", 10)
-        assert ps.fused_available(st9, "cheby", 9)
-
-        # a hand-built unaligned deep stencil still declines compiled
-        # execution (falls back to the per-step XLA path) but keeps the
-        # fused path in interpret mode
-        st_h9 = g1.face_stencil(0.75, n_steps=9)
-        assert st_h9 is not None and st_h9.n_steps == 9
-        assert not ps.fused_available(st_h9, "cheby", 10)
-        monkeypatch.setattr(cfg, "pallas_mode", lambda: "interpret")
-        assert ps.fused_available(st_h9, "cheby", 10)
-        assert ps.fused_available(st3, "cheby", 5)
-
-        # a padded stencil must also serve SHALLOWER convs of the same
-        # radius (the halo is a superset): K=5 on the K=10-padded stencil
-        assert ps.cfp_structural_available(st10, "cheby", 5)
+        assert cfp_structural_available(st3, "cheby", 5)
+        assert cfp_structural_available(st10, "cheby", 10)
+        # a deeper stencil serves SHALLOWER convs of the same radius ...
+        assert cfp_structural_available(st10, "cheby", 5)
         # ... but never a conv needing MORE halo than it has
-        assert not ps.cfp_structural_available(st9, "cheby", 10)
-
-    @pytest.mark.slow
-    def test_ring_fused_pallas_radius3_multiband(self, rng, monkeypatch):
-        """The fused Pallas kernel (interpret mode) on a RADIUS-3 stencil
-        (k=40, K=5 -> h=12 padded to 16) with the band height squeezed so
-        the multi-band window-DMA path runs (nbands=2).  Radius 3/4 had no
-        interpret coverage before round 3; the round-2 on-chip k=40 fault
-        at nside=128 made that gap visible (VERDICT.md round 2, #2).  As of
-        round 4 this also exercises the PADDED halo (n_steps=16 > needed
-        12): extra margin rows must stay valid-but-unused."""
-        import jax
-
-        import deepsphere_tpu.config as cfg
-        import deepsphere_tpu.nn.layers as L
-        from deepsphere_tpu.ops import pallas_stencil as ps
-
-        monkeypatch.setenv("DS_PALLAS_VMEM_MB", "2")  # force Tr=16
-        cfg.set_use_pallas("on")
-        try:
-            nside, k, K = 32, 40, 5
-            g = build_sphere_graph(nside, k=k, method="grid")
-            st = g.deep_stencil(0.75, K)
-            assert st is not None and st.radius == 3 and st.n_steps == 16
-            n, h, R, P, Tr, Sd = ps._band_geometry(st, C=2, cout=2)
-            assert n // Tr >= 2, (Tr, "multi-band path not engaged")
-
-            x = jnp.asarray(rng.normal(size=(1, g.n_pixels, 2)), jnp.float32)
-            conv_st = L.ChebyshevConv(graph=g, K=K, Fout=2,
-                                      conv_method="stencil")
-            conv_el = L.ChebyshevConv(graph=g, K=K, Fout=2,
-                                      conv_method="ellpack")
-            v = conv_st.init(jax.random.key(0), x)
-            v_el = conv_el.init(jax.random.key(1), x)
-            v_el = {**v_el, "params": v["params"]}
-            y_st = np.asarray(jax.jit(conv_st.apply)(v, x))
-            y_el = np.asarray(jax.jit(conv_el.apply)(v_el, x))
-            np.testing.assert_allclose(y_st, y_el, atol=1e-4)
-        finally:
-            cfg.set_use_pallas("auto")
-
-    @pytest.mark.slow
-    def test_ring_fused_pallas_matches_ellpack(self, rng):
-        """The fused Pallas kernel (interpret mode) on a radius-2 stencil:
-        forward + gradients against the gather path."""
-        import jax
-
-        import deepsphere_tpu.config as cfg
-        import deepsphere_tpu.nn.layers as L
-
-        cfg.set_use_pallas("on")
-        try:
-            nside, k, K = 16, 20, 3
-            g = build_sphere_graph(nside, k=k, method="grid")
-            x = jnp.asarray(rng.normal(size=(1, g.n_pixels, 2)), jnp.float32)
-            conv_st = L.ChebyshevConv(graph=g, K=K, Fout=2,
-                                      conv_method="stencil")
-            conv_el = L.ChebyshevConv(graph=g, K=K, Fout=2,
-                                      conv_method="ellpack")
-            v = conv_st.init(jax.random.key(0), x)
-            v_el = conv_el.init(jax.random.key(0), x)
-            v_el = {**v_el, "params": v["params"]}
-
-            y_st = np.asarray(jax.jit(conv_st.apply)(v, x))
-            y_el = np.asarray(jax.jit(conv_el.apply)(v_el, x))
-            np.testing.assert_allclose(y_st, y_el, atol=1e-4)
-
-            def loss(m, vv, p):
-                out = m.apply({**vv, "params": p}, x)
-                return jnp.sum(jnp.sin(out))
-
-            g_st = jax.jit(jax.grad(lambda p: loss(conv_st, v, p)))(
-                v["params"]
-            )
-            g_el = jax.jit(jax.grad(lambda p: loss(conv_el, v_el, p)))(
-                v_el["params"]
-            )
-            np.testing.assert_allclose(
-                np.asarray(g_st["kernel"]), np.asarray(g_el["kernel"]),
-                rtol=1e-4, atol=1e-4,
-            )
-        finally:
-            cfg.set_use_pallas("auto")
+        assert not cfp_structural_available(st9, "cheby", 10)
+        assert not cfp_structural_available(st10, "bern", 5)
+        # a halo as deep as the face itself has no stencil
+        assert build_sphere_graph(8, k=8, method="grid").deep_stencil(
+            0.75, 10) is None
